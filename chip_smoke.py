@@ -1,24 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on an NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU
+and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, one line (or a few) each:
+The model is the flagship: 10-class pooled MNIST, N=196, M=128, D=2, L=10,
+linear/MSE, random weights from a seed, synthetic pooled images. Phases:
   1. device  -- the card, as nvidia-smi reports its name and power limit;
-  2. build   -- compile the CUDA kernel from csrc/ with nvcc;
-  3. kernel  -- the chain kernel against its plain PyTorch version on the
-                card, at the flagship shapes and at a ragged one;
-  4. serve   -- the flagship model (10-class pooled MNIST: N=196, M=128,
-                D=2, L=10, linear/MSE, random weights from a seed) saved to
-                .npz, served by Predictor.from_checkpoint on cuda, held
-                against the plain Predictor on the same card;
-  5. timing  -- kernel vs plain, and Predictor samples/s, with CUDA events.
+  2. build   -- compile every CUDA kernel from csrc/ (one nvcc per source,
+                all started together) and print ptxas's report for each;
+  3. kernel  -- each kernel against its plain PyTorch version on the card:
+                K3 (chain) at the serving shapes, K2 (pre-split step) and K1
+                (polar iteration) on the inputs of a mid-chain step of the
+                flagship training batch, and each at a ragged shape;
+  4. serve   -- the model saved to .npz and served by
+                Predictor.from_checkpoint on cuda (K3), held against the
+                plain Predictor;
+  5. train   -- train_model with svd_method="polar" on 4 batches of 256 (two
+                right and two left sweeps): K1 must launch 4 x 195 times; the
+                first sweep is held against the same sweep with the plain
+                versions swapped in;
+  6. hybrid  -- fused_epoch with engine="hybrid" on 2 batches: K2 and K1 must
+                each launch 2 x 195 times; the first sweep is held against
+                the xla-engine polar sweep;
+  7. timing  -- each kernel vs its plain version with CUDA events (plain,
+                kernel, kernel, plain), ms per sweep on both engines, the
+                device time of a profiled sweep, Predictor samples/s.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device the script
-exits non-zero before printing either.
+Launch counts are set to 0 just before each path (serve, train, hybrid) and
+read just after it; the comparisons with plain versions happen outside those
+windows. The line before the last is a JSON object describing each kernel;
+the last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits non-zero before printing either, and any failed check exits
+non-zero too.
 """
 
 from __future__ import annotations
@@ -28,38 +44,68 @@ import os
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
 
+from tensornetworkforml_torch.data.loader import ArrayLoader, NumpyDataset
 from tensornetworkforml_torch.data.mnist import max_pool_2x2, synthetic_mnist
-from tensornetworkforml_torch.models.mps import product_init
+from tensornetworkforml_torch.models.mps import mps_forward, product_init
 from tensornetworkforml_torch.models.serving import Predictor
-from tensornetworkforml_torch.ops.kernels import _build, env_scan
+from tensornetworkforml_torch.ops.embedding import psi_embed
+from tensornetworkforml_torch.ops.kernels import _build, env_scan, polar_split, presplit_kernel
+from tensornetworkforml_torch.train import epoch as epoch_mod
+from tensornetworkforml_torch.train import sweep as sweep_mod
+from tensornetworkforml_torch.train.sweep import SweepConfig, one_hot_labels, sweep_once
+from tensornetworkforml_torch.train.trainer import train_model
 from tensornetworkforml_torch.utils.checkpoint import save_checkpoint
 
 N, M, D, L = 196, 128, 2, 10  # the flagship: cli/training_mnist.py --M 128
-BATCH = 256  # Predictor's default batch
+STEPS = N - 1  # two-site steps per sweep
+BATCH = 256  # Predictor's default batch and the training batch
 BIG = 8192
 SEED = 0
 REQUEST_SIZES = (1, 255, 256, 257, 1000)
-# Kernel vs plain: max|kernel - plain| <= TOL * max|plain|. Both run in f32
+LR, WD = 0.05, 1e-5  # bench.py's flagship sweep rate; the training CLI's decay
+TRAIN_BATCHES, HYBRID_BATCHES = 4, 2
+CAPTURE_STEP = N // 2  # a mid-chain step: bonds fully live
+# K3 vs plain: max|kernel - plain| <= TOL * max|plain|. Both run in f32
 # but sum the 2M = 256 terms of a site in different orders, and the rounding
 # compounds over 195 dependent sites: about eps * sqrt(2M * n) = 2.7e-6
 # relative is expected; 1e-4 leaves a margin and is the tolerance the JAX
 # package holds its Pallas kernel to.
 TOL = 1e-4
+# K2 vs plain, each output relative to its max: sums of at most a few
+# thousand f32 products in another order (measured ~2e-7 at these shapes).
+K2_TOL = 1e-5
+# K1 vs plain: ~60 dependent f32 products in another order. The projector
+# and Q itself move by ~1e-5 on a half-decade spectrum and ~1e-4 on a
+# two-decade one (CPU measurement, tests/test_torch_polar_iterate.py); a
+# mid-chain two-site spectrum can be wider, so 1e-3. Q R reproduces B's
+# dominant part, which rounding barely moves: 1e-4 of max|B|. Live columns
+# are orthonormal to the final schedule's 1e-7 target plus f32 rounding: 1e-4.
+K1_PROJ_TOL, K1_REC_TOL, K1_ISO_TOL = 1e-3, 1e-4, 1e-4
+# One full 195-step sweep, kernel route vs plain route (and hybrid vs xla
+# engine), on f_final and on the swept model's scores for fresh requests,
+# relative to max|f|: per-step f32 differences of ~1e-6 are amplified along
+# the 195-step sweep to an expected ~1e-3; 2e-2 leaves a margin.
+SWEEP_TOL = 2e-2
 DEVICE = "cuda"
+# peak rates of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def pooled_requests(n: int, seed: int) -> np.ndarray:
-    """``n`` synthetic MNIST images, /255 and 2x2 max-pooled: ``(n, 196)``."""
-    imgs = synthetic_mnist(n_train=n, n_test=0, seed=seed)[0]
-    return max_pool_2x2(imgs / 255.0).reshape(n, -1).astype(np.float32)
+def pooled(n: int, seed: int):
+    """``n`` synthetic MNIST images /255, 2x2 max-pooled: ``(n, 196)`` and labels."""
+    imgs, labels, _, _ = synthetic_mnist(n_train=n, n_test=0, seed=seed)
+    x = max_pool_2x2(imgs / 255.0).reshape(n, -1).astype(np.float32)
+    return x, labels.astype(np.int64)
 
 
 def phase_device() -> str:
@@ -80,18 +126,34 @@ def phase_device() -> str:
     return kind
 
 
+KERNELS = {  # source name -> module whose _lib() builds and binds it
+    "env_scan": env_scan,
+    "polar_iterate": polar_split,
+    "presplit": presplit_kernel,
+}
+
+
 def phase_build() -> None:
+    def build(name):
+        t0 = time.perf_counter()
+        KERNELS[name]._lib()
+        return name, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    env_scan._lib()
-    seconds = time.perf_counter() - t0
-    log = open(f"{_build.library_path('env_scan')}.log").read()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] env_scan.cu in {seconds:.2f} s; " + " | ".join(ptxas))
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        done = list(pool.map(build, KERNELS))
+    print(f"[build] {len(done)} sources in {time.perf_counter() - t0:.2f} s, in parallel")
+    for name, seconds in done:
+        log = open(f"{_build.library_path(name)}.log").read()
+        report = [ln.split("ptxas info    : ")[-1].strip() for ln in log.splitlines()
+                  if "registers" in ln or "spill" in ln]
+        print(f"[build] {name}.cu {seconds:.2f} s: " + " | ".join(report))
 
 
-def compare(name: str, sites: torch.Tensor, x: torch.Tensor) -> float:
-    """Kernel vs plain version in f32 and f64 on the card; returns the f32 error."""
+# ---- phase 3: each kernel against its plain version ------------------------
+
+def compare_chain(name: str, sites: torch.Tensor, x: torch.Tensor) -> float:
+    """K3 vs its plain version in f32 and f64 on the card; returns the f32 error."""
     got = env_scan.right_env_chain(sites, x)
     torch.cuda.synchronize()
     ref32 = env_scan.right_env_chain_reference(sites, x)
@@ -102,37 +164,152 @@ def compare(name: str, sites: torch.Tensor, x: torch.Tensor) -> float:
     err32 = float((got - ref32).abs().max())
     err64 = float((got.double() - ref64).abs().max())
     ok = max(err32, err64) <= TOL * scale
-    print(f"[kernel] {name}: max|ref|={scale:.4g} err_vs_f32={err32:.3g} "
+    print(f"[kernel] right_env_chain {name}: max|ref|={scale:.4g} err_vs_f32={err32:.3g} "
           f"err_vs_f64={err64:.3g} tol={TOL * scale:.3g} {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"{name}: kernel disagrees with its plain version")
+        fail(f"{name}: chain kernel disagrees with its plain version")
     return err32
 
 
-def phase_kernel(mps, x_big: torch.Tensor) -> float:
-    sites = mps.sites[1:]  # the chain the serving forward hands the kernel
-    errs = [compare(f"N={N} M={M} B={B}", sites, x_big[:B, 1:]) for B in (BATCH, BIG)]
+class _Captured(Exception):
+    pass
+
+
+def capture_step(mps, x, y, step: int) -> dict:
+    """The inputs K2 gets at ``step`` of the hybrid sweep over batch ``(x, y)``
+    (the sweep stops there), and the inputs K1 then gets."""
+    real = presplit_kernel.two_site_presplit
+    seen = {"n": 0}
+
+    def spy(*args, **kwargs):
+        if seen["n"] == step:
+            seen["args"], seen["kwargs"] = args, kwargs
+            raise _Captured
+        seen["n"] += 1
+        return real(*args, **kwargs)
+
+    cfg = flagship_cfg("hybrid")
+    with mock.patch.object(sweep_mod, "two_site_presplit", spy):
+        try:
+            sweep_once(mps, psi_embed(x), one_hot_labels(y, L, torch.float32), LR, WD, cfg)
+        except _Captured:
+            pass
+    if "args" not in seen:
+        fail(f"the hybrid sweep never reached step {step}")
+    out = real(*seen["args"], **seen["kwargs"])
+    y0, g, stats = out[1], out[2], out[5]
+    return {"k2": (seen["args"], seen["kwargs"]), "k2_out": out,
+            "k1": (y0, g, stats[0, 2].reshape(1, 1)),
+            "bmat": out[0].permute(1, 0, 2).reshape(out[0].shape[1], -1)}
+
+
+def compare_presplit(name, args, kwargs) -> float:
+    got = presplit_kernel.two_site_presplit(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = presplit_kernel.two_site_presplit_reference(*args, **kwargs)
+    rel, abs_err = [], 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{name}: K2 output {tuple(a.shape)} not finite or wrong shape")
+        err = float((a - b).abs().max())
+        abs_err = max(abs_err, err)
+        rel.append(err / max(float(b.abs().max()), 1e-30))
+    ok = max(rel) <= K2_TOL
+    print(f"[kernel] two_site_presplit {name}: relative errors (B_new, y0, G, f_new, "
+          f"left_part, stats) = {', '.join(f'{r:.2g}' for r in rel)}; tol {K2_TOL:g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: K2 disagrees with its plain version")
+    return abs_err
+
+
+def compare_polar(name, y0, g, n2, bmat) -> float:
+    q = polar_split.polar_iterate(y0, g, n2)
+    torch.cuda.synchronize()
+    q_ref = polar_split.polar_iterate_reference(y0, g, n2)
+    if q.shape != q_ref.shape or not torch.isfinite(q).all():
+        fail(f"{name}: K1 output {tuple(q.shape)} not finite or wrong shape")
+    q64, r64 = q.double(), q_ref.double()
+    proj = float((q64 @ q64.T - r64 @ r64.T).abs().max())
+    b64 = bmat.double()
+    rec = float((q64 @ (q64.T @ b64) - r64 @ (r64.T @ b64)).abs().max() / b64.abs().max())
+    live = torch.linalg.vector_norm(q64, dim=0) > 0.5
+    iso = float((q64[:, live].T @ q64[:, live] - torch.eye(int(live.sum()), dtype=torch.float64,
+                                                          device=q.device)).abs().max())
+    err = float((q - q_ref).abs().max())
+    ok = proj <= K1_PROJ_TOL and rec <= K1_REC_TOL and iso <= K1_ISO_TOL
+    path = "resident" if polar_split._lib().tnml_polar_resident(*y0.shape) else "streaming"
+    print(f"[kernel] polar_iterate {name} ({path} path): |QQt-Q'Q't|={proj:.3g} (tol {K1_PROJ_TOL:g}) "
+          f"|QR-Q'R'|/max|B|={rec:.3g} (tol {K1_REC_TOL:g}) iso={iso:.3g} (tol "
+          f"{K1_ISO_TOL:g}) live={int(live.sum())}/{q.shape[1]} |Q-Q'|={err:.3g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: K1 disagrees with its plain version")
+    return err
+
+
+def phase_kernel(mps, x_big: torch.Tensor, captured: dict) -> dict:
+    errs = {}
+    sites = mps.sites[1:]  # the chain the serving forward hands K3
+    e = [compare_chain(f"N={N} M={M} B={B}", sites, x_big[:B, 1:]) for B in (BATCH, BIG)]
     gen = torch.Generator().manual_seed(SEED + 1)
     m, n, b = 5, 21, 37  # ragged: M not a tile multiple, B not a batch tile
     small = torch.randn((n, m, 2, m), generator=gen) / np.sqrt(m)
     xs = torch.rand((b, n), generator=gen)
-    errs.append(compare(f"ragged M={m} n={n} B={b}", small.to(DEVICE), xs.to(DEVICE)))
-    return max(errs)
+    e.append(compare_chain(f"ragged M={m} n={n} B={b}", small.to(DEVICE), xs.to(DEVICE)))
+    errs["right_env_chain"] = max(e)
+
+    args, kwargs = captured["k2"]
+    e = [compare_presplit(f"flagship step {CAPTURE_STEP}", args, kwargs)]
+    rl, rm, rb, rq = 3, 5, 37, 5  # ragged: L, M, B and q off every tile size
+    r = lambda *s: torch.randn(s, generator=gen).to(DEVICE)  # noqa: E731
+    ragged = (r(rl, rm * D, rm) / np.sqrt(rm), r(rm, D * rm) / np.sqrt(rm),
+              torch.rand((rb, D), generator=gen).to(DEVICE),
+              torch.rand((rb, D), generator=gen).to(DEVICE), r(rb, rm), r(rb, rm),
+              torch.eye(rl)[torch.randint(0, rl, (rb,), generator=gen)].T.contiguous().to(DEVICE),
+              0.3 * r(rl, rb), r(rl, D * rm, rq))
+    e.append(compare_presplit(f"ragged L={rl} M={rm} B={rb}", ragged + (LR, WD),
+                              dict(act_fn="softmax", loss_fn="cross_entropy", T=0.5)))
+    errs["two_site_presplit"] = max(e)
+
+    y0, g, n2 = captured["k1"]
+    e = [compare_polar(f"flagship step {CAPTURE_STEP} I={y0.shape[0]} q={y0.shape[1]}",
+                       y0, g, n2, captured["bmat"])]
+    bm = r(40, 200)
+    om = r(200, 24)
+    e.append(compare_polar("ragged I=40 q=24 (n2 from tr G)", (bm @ om).contiguous(),
+                           (bm @ bm.T).contiguous(), None, bm))
+    errs["polar_iterate"] = max(e)
+    return errs
+
+
+# ---- phases 4-6: the main paths ---------------------------------------------
+
+def reset_counts() -> None:
+    env_scan.right_env_chain.launches = 0
+    polar_split.polar_iterate.launches = 0
+    presplit_kernel.two_site_presplit.launches = 0
+
+
+def counts() -> dict:
+    return {"right_env_chain": env_scan.right_env_chain.launches,
+            "polar_iterate": polar_split.polar_iterate.launches,
+            "two_site_presplit": presplit_kernel.two_site_presplit.launches}
 
 
 def phase_serve(mps, requests: np.ndarray) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "flagship.npz")
         save_checkpoint(mps, path)
-        env_scan.right_env_chain.launches = 0
-        pred = Predictor.from_checkpoint(path, device=DEVICE)
+        reset_counts()
+        pred = Predictor.from_checkpoint(path)  # the default device: the card
         pred.warmup()
         served = {n: pred.scores(requests[:n]) for n in REQUEST_SIZES}
         labels = pred.predict(requests[:BATCH])
-        launches = env_scan.right_env_chain.launches
+        launches = counts()["right_env_chain"]
         plain = Predictor.from_checkpoint(path, device=DEVICE, use_kernel=False)
-    if not pred.use_kernel or plain.use_kernel:
-        fail("the default Predictor on cuda did not select the kernel")
+    if pred.device.type != "cuda" or not pred.use_kernel or plain.use_kernel:
+        fail("the default Predictor did not serve on cuda through the kernel")
     if launches == 0:
         fail("the serving path never launched the chain kernel")
     for n, got in served.items():
@@ -145,11 +322,117 @@ def phase_serve(mps, requests: np.ndarray) -> int:
             fail(f"scores for {n} requests differ from the plain Predictor: {err:.3g} > {tol:.3g}")
     if labels.shape != (BATCH,) or labels.min() < 0 or labels.max() >= L:
         fail(f"predict gave labels of shape {labels.shape} outside [0, {L})")
-    print(f"[serve] Predictor(cuda, kernel) on requests {REQUEST_SIZES}: shapes ok, "
-          f"scores match the plain Predictor within {TOL:g} x max|f|; "
-          f"kernel launches {launches}")
+    print(f"[serve] Predictor.from_checkpoint (default device cuda, kernel) on requests "
+          f"{REQUEST_SIZES}: shapes ok, scores match the plain Predictor within {TOL:g} x "
+          f"max|f|; K3 launches {launches}")
     return launches
 
+
+def flagship_cfg(engine: str) -> SweepConfig:
+    return SweepConfig(act_fn="linear", loss_fn="MSE", L2_flag=False, split_mode="canonical",
+                       svd_method="polar", engine=engine)
+
+
+def plain_versions():
+    """Swap the plain versions in for the kernel wrappers, where the sweep
+    and the polar split look them up."""
+    return (mock.patch.object(polar_split, "polar_iterate", polar_split.polar_iterate_reference),
+            mock.patch.object(sweep_mod, "polar_iterate", polar_split.polar_iterate_reference),
+            mock.patch.object(sweep_mod, "two_site_presplit",
+                              presplit_kernel.two_site_presplit_reference))
+
+
+def one_sweep(mps, x, y, engine, plain=False):
+    cfg = flagship_cfg(engine)
+    args = (mps, psi_embed(x), one_hot_labels(y, L, torch.float32), LR, WD, cfg)
+    if not plain:
+        return sweep_once(*args)
+    p1, p2, p3 = plain_versions()
+    with p1, p2, p3:
+        return sweep_once(*args)
+
+
+def hold_sweeps(what, a, b, x_fresh) -> float:
+    """Two one-sweep results (new_mps, f_first, f_final, metrics): f_final
+    and the swept models' scores on fresh requests, relative to max|f|."""
+    worst = 0.0
+    for label, fa, fb in (("f_final", a[2], b[2]),
+                          ("fresh scores", mps_forward(a[0], psi_embed(x_fresh)),
+                           mps_forward(b[0], psi_embed(x_fresh)))):
+        if not (torch.isfinite(fa).all() and torch.isfinite(fb).all()):
+            fail(f"{what}: non-finite {label}")
+        rel = float((fa - fb).abs().max() / fb.abs().max())
+        worst = max(worst, rel)
+        print(f"[{what}] {label}: max|diff|/max|f| = {rel:.3g} (tol {SWEEP_TOL:g}) "
+              f"{'ok' if rel <= SWEEP_TOL else 'FAIL'}")
+        if rel > SWEEP_TOL:
+            fail(f"{what}: {label} differs by {rel:.3g} of max|f|")
+    return worst
+
+
+def phase_train(mps0, x_tr, y_tr, x_val, y_val, x_fresh) -> tuple[int, float]:
+    train_loader = ArrayLoader(NumpyDataset(x_tr, y_tr), BATCH, drop_last=True)
+    val_loader = ArrayLoader(NumpyDataset(x_val, y_val), BATCH, drop_last=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mps, val_acc, var_hist = train_model(
+        mps0, train_loader, val_loader, lr=LR, n_epochs=1, weight_dec=WD, L2_flag=False,
+        svd_method="polar", split_mode="canonical", verbose=False, warmup_epochs=0,
+        restarts=0,
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    if mps.device.type != "cuda" or not (torch.isfinite(mps.sites).all()
+                                         and torch.isfinite(mps.label_site).all()):
+        fail("train_model left a non-finite model or one off the card")
+    if launched["polar_iterate"] != TRAIN_BATCHES * STEPS or launched["two_site_presplit"]:
+        fail(f"train_model launched K1 {launched['polar_iterate']} times (want "
+             f"{TRAIN_BATCHES * STEPS}) and K2 {launched['two_site_presplit']} (want 0)")
+    if var_hist.shape != (1, 2, TRAIN_BATCHES * STEPS) or len(val_acc) != 1:
+        fail(f"train_model returned var_hist {var_hist.shape}, {len(val_acc)} val accuracies")
+    print(f"[train] train_model N={N} M={M} L={L} B={BATCH}, polar split, "
+          f"{TRAIN_BATCHES} batches (2 right + 2 left sweeps): {seconds:.2f} s "
+          f"({seconds / TRAIN_BATCHES * 1e3:.1f} ms/batch, validation included); "
+          f"K1 launches {launched['polar_iterate']} = {TRAIN_BATCHES} x {STEPS}; "
+          f"val acc {val_acc[0]:.4f}; model finite")
+    xb, yb = torch.as_tensor(x_tr[:BATCH], device=DEVICE), torch.as_tensor(y_tr[:BATCH],
+                                                                            device=DEVICE)
+    kern = one_sweep(mps0, xb, yb, "xla")
+    plain = one_sweep(mps0, xb, yb, "xla", plain=True)
+    hold_sweeps("train", kern, plain, x_fresh)
+    return launched["polar_iterate"], seconds / TRAIN_BATCHES
+
+
+def phase_hybrid(mps0, x_tr, y_tr, x_fresh) -> dict:
+    xe = torch.as_tensor(x_tr[: HYBRID_BATCHES * BATCH], device=DEVICE).reshape(
+        HYBRID_BATCHES, BATCH, N)
+    ye = torch.as_tensor(y_tr[: HYBRID_BATCHES * BATCH], device=DEVICE).reshape(
+        HYBRID_BATCHES, BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mps, accs, _ = epoch_mod.fused_epoch(mps0, xe, ye, LR, WD, flagship_cfg("hybrid"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    want = HYBRID_BATCHES * STEPS
+    if launched["two_site_presplit"] != want or launched["polar_iterate"] != want:
+        fail(f"the hybrid epoch launched K2 {launched['two_site_presplit']} and K1 "
+             f"{launched['polar_iterate']} times (want {want} each)")
+    if not (torch.isfinite(mps.sites).all() and torch.isfinite(mps.label_site).all()):
+        fail("the hybrid epoch left a non-finite model")
+    print(f"[hybrid] fused_epoch engine=hybrid, {HYBRID_BATCHES} batches: {seconds:.2f} s; "
+          f"K2 launches {launched['two_site_presplit']}, K1 launches "
+          f"{launched['polar_iterate']} = {HYBRID_BATCHES} x {STEPS} each; batch accs "
+          f"{[round(float(a), 4) for a in accs]}")
+    hold_sweeps("hybrid", one_sweep(mps0, xe[0], ye[0], "hybrid"),
+                one_sweep(mps0, xe[0], ye[0], "xla"), x_fresh)
+    return launched
+
+
+# ---- phase 7: timing ----------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 20) -> float:
     fn()
@@ -172,20 +455,122 @@ def host_ms(fn, reps: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def phase_timing(mps, requests: np.ndarray, x_big: torch.Tensor) -> dict:
-    """Kernel vs plain at B=256 and 8192, in turns (plain, kernel, kernel,
-    plain); the site stack stays warm in L2 between launches, as it does
-    for a server under steady traffic."""
-    sites = mps.sites[1:]
+def turns(name, kern, plain, reps=20):
+    """Kernel vs plain in turns (plain, kernel, kernel, plain); mean ms each."""
+    p1, k1, k2, p2 = (cuda_ms(plain, reps), cuda_ms(kern, reps), cuda_ms(kern, reps),
+                      cuda_ms(plain, reps))
+    print(f"[timing] {name}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, plain "
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us")
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def chain_work(n, m, b):
+    return 4.0 * n * b * m * m, 4.0 * (n * m * 2 * m + b * n + b * m)
+
+
+def polar_work(I, q, n_loop, n_final, n_power=1):
+    passes = n_loop * n_power + n_final
+    flops = (passes * (4.0 * I * q * q + 2.0 * q ** 3) + (n_power + 1) * 2.0 * I * q * q
+             + n_power * 2.0 * I * I * q)
+    return flops, 4.0 * (2 * I * q + I * I)
+
+
+def presplit_work(Lb, I, Mk, DM, B, q):
+    flops = 2.0 * Lb * I * DM * (Mk + B + I + q + B)
+    nbytes = 4.0 * (Lb * I * Mk + Mk * DM + 2 * B * D + 2 * B * Mk + 2 * Lb * B
+                    + Lb * DM * q + 2  # inputs, lr and wd included
+                    + Lb * I * DM + I * q + I * I + Lb * B + B * I + 8)  # outputs
+    return flops, nbytes
+
+
+def device_time_table(fn) -> dict:
+    """Device time by kernel name over one call of ``fn`` (torch.profiler).
+    A first, empty profile pays the tracer's start-up outside the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    table = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            table[ev.key] = dev_us / 1e3
+    return {"wall_ms": wall, "by_kernel_ms": table}
+
+
+def summarise_profile(engine, prof, wall_ms) -> None:
+    """Device time by kernel over one profiled sweep. The idle share is taken
+    against the unprofiled sweep's wall time ``wall_ms``: the tracer inflates
+    the host side of a sweep of ~30 small launches per step."""
+    by = prof["by_kernel_ms"]
+    busy = sum(by.values())
+    k1 = sum(v for k, v in by.items() if "polar_resident_kernel" in k
+             or "polar_streaming_kernel" in k)
+    k2 = sum(v for k, v in by.items()
+             if any(s in k for s in ("grad_kernel", "update_kernel", "reduce_kernel",
+                                     "finish_kernel")))
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[profile] {engine} sweep: device busy {busy:.1f} ms of {wall_ms:.1f} ms unprofiled "
+          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}; profiled wall "
+          f"{prof['wall_ms']:.1f} ms); K1 {k1:.1f} ms, "
+          f"K2 {k2:.1f} ms, other {busy - k1 - k2:.1f} ms; top: "
+          + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+
+
+def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
+    """Kernel vs plain in turns at the main path's shapes. The site stack
+    stays warm in L2 between launches, as it does for a server under steady
+    traffic and for consecutive steps of a sweep."""
     ms = {}
+    sites = mps.sites[1:]
     for B in (BATCH, BIG):
         x = x_big[:B, 1:]
-        kern = lambda: env_scan.right_env_chain(sites, x)  # noqa: E731
-        ref = lambda: env_scan.right_env_chain_reference(sites, x)  # noqa: E731
-        p1, k1, k2, p2 = cuda_ms(ref), cuda_ms(kern), cuda_ms(kern), cuda_ms(ref)
-        ms[B] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[timing] right_env_chain B={B}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, "
-              f"plain {p1 * 1e3:.1f} / {p2 * 1e3:.1f} us")
+        ms[("right_env_chain", B)] = turns(
+            f"right_env_chain B={B}", lambda: env_scan.right_env_chain(sites, x),
+            lambda: env_scan.right_env_chain_reference(sites, x))
+    args, kwargs = captured["k2"]
+    ms["two_site_presplit"] = turns(
+        f"two_site_presplit L={L} I={M * D} DM={D * M} B={BATCH} q={M}",
+        lambda: presplit_kernel.two_site_presplit(*args, **kwargs),
+        lambda: presplit_kernel.two_site_presplit_reference(*args, **kwargs))
+    y0, g, n2 = captured["k1"]
+    ms["polar_iterate"] = turns(
+        f"polar_iterate I={M * D} q={M}", lambda: polar_split.polar_iterate(y0, g, n2),
+        lambda: polar_split.polar_iterate_reference(y0, g, n2), reps=10)
+
+    xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
+    yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
+    sweep_ms = {}
+    for engine in ("xla", "hybrid", "hybrid", "xla"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_sweep(mps, xb, yb, engine)
+        torch.cuda.synchronize()
+        sweep_ms.setdefault(engine, []).append((time.perf_counter() - t0) * 1e3)
+    for engine, v in sweep_ms.items():
+        print(f"[timing] sweep engine={engine} (polar split): {v[0]:.1f} / {v[1]:.1f} ms, "
+              f"{BATCH / (sum(v) / 2) * 1e3:.0f} samples/s")
+    ms["sweep"] = {k: sum(v) / 2 for k, v in sweep_ms.items()}
+    for engine in ("xla", "hybrid"):
+        summarise_profile(engine, device_time_table(lambda: one_sweep(mps, xb, yb, engine)),
+                          ms["sweep"][engine])
+
+    for B in (BATCH, BIG):
         for use_kernel in (True, False):
             pred = Predictor(mps, batch_size=B, use_kernel=use_kernel)
             t = host_ms(lambda: pred.scores(requests[:B]))
@@ -197,26 +582,64 @@ def phase_timing(mps, requests: np.ndarray, x_big: torch.Tensor) -> dict:
 def main() -> None:
     kind = phase_device()
     phase_build()
-    requests = pooled_requests(BIG, seed=SEED)
+    requests, _ = pooled(BIG, seed=SEED)
     x_big = torch.as_tensor(requests, device=DEVICE)
-    gen = torch.Generator().manual_seed(SEED)
-    mps = product_init(gen, N=N, M=M, D=D, L=L, act_fn="linear", loss_fn="MSE",
-                       calibration_x=requests[:512], device=DEVICE)
-    print(f"[model] product_init N={N} M={M} D={D} L={L} on cuda, "
+    x_tr, y_tr = pooled(TRAIN_BATCHES * BATCH, seed=SEED + 2)
+    x_val, y_val = pooled(BATCH, seed=SEED + 3)
+    x_fresh = torch.as_tensor(pooled(BATCH, seed=SEED + 4)[0], device=DEVICE)
+    mps = product_init(torch.Generator().manual_seed(SEED), N=N, M=M, D=D, L=L,
+                       act_fn="linear", loss_fn="MSE", calibration_x=requests[:512])
+    if mps.device.type != "cuda":
+        fail(f"product_init placed the model on {mps.device}, not on the card")
+    print(f"[model] product_init N={N} M={M} D={D} L={L} on {mps.device} (the default), "
           f"{mps.sites.numel() * 4 / 1e6:.1f} MB of sites")
-    max_err = phase_kernel(mps, x_big)
-    launches = phase_serve(mps, requests)
-    ms = phase_timing(mps, requests, x_big)
-    print(json.dumps({"kernels": [{
-        "name": "right_env_chain",
-        "route": "cuda",
-        "source": "tensornetworkforml_torch/csrc/env_scan.cu",
-        "replaces": "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms[BATCH][0],
-        "plain_ms": ms[BATCH][1],
-    }]}))
+    captured = capture_step(mps, torch.as_tensor(x_tr[:BATCH], device=DEVICE),
+                            torch.as_tensor(y_tr[:BATCH], device=DEVICE), CAPTURE_STEP)
+    errs = phase_kernel(mps, x_big, captured)
+    launches = {"right_env_chain": phase_serve(mps, requests)}
+    launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
+                                                           x_fresh)
+    launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
+    ms = phase_timing(mps, requests, x_big, captured, x_tr, y_tr)
+
+    pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
+          len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
+    work = {
+        "right_env_chain": chain_work(N - 1, M, BATCH),
+        "polar_iterate": polar_work(M * D, M, *pe),
+        "two_site_presplit": presplit_work(L, M * D, M, D * M, BATCH, M),
+    }
+    for name, (flops, nbytes) in list(work.items()) + [
+            ("right_env_chain B=8192", chain_work(N - 1, M, BIG))]:
+        b_ms, b_by = bound_ms(flops, nbytes)
+        print(f"[bound] {name}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> {b_ms * 1e3:.2f} us "
+              f"({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s f32 and {HBM_BYTES / 1e12:g} TB/s")
+    rows = []
+    for name, source, replaces, key in (
+        ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
+         ("right_env_chain", BATCH)),
+        ("polar_iterate", "polar_iterate.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:566", "polar_iterate"),
+        ("two_site_presplit", "presplit.cu",
+         "tensornetworkforml_tpu/ops/kernels/presplit_kernel.py:69", "two_site_presplit"),
+    ):
+        b_ms, b_by = bound_ms(*work[name])
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tensornetworkforml_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms[key][0],
+            "plain_ms": ms[key][1],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes any of the three
+        })
+    print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "
+          f"ms/batch")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -7,9 +7,12 @@ names. Kernels written by hand for Hopper live in ``csrc/`` and are built
 with ``nvcc`` at first use (``ops/kernels/_build.py``); on CPU tensors each
 kernel's wrapper runs its plain PyTorch version.
 
-Ported so far: the serving path -- embedding, contractions, the ``MPS``
-model, ``.npz`` checkpoints, the data helpers and ``Predictor`` with its
-chain kernel. Training is not ported yet (see ROADMAP.md).
+Ported so far: serving and training -- embedding, contractions, the splits,
+the ``MPS`` model, ``.npz`` checkpoints, the data helpers and loaders,
+``Predictor`` with its chain kernel, and the two-site sweep, epoch and
+``train_model`` with the polar-iteration and pre-split kernels. The entry
+points run on the card unless given ``device="cpu"``. ROADMAP.md lists what
+is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -101,6 +101,23 @@ class MPS(nn.Module):
         return mps_forward(self, phi)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the card.
+
+    The port is built for an NVIDIA GPU, so ``None`` means ``"cuda"``. On a
+    machine without a card, pass ``device="cpu"`` explicitly: ``None`` then
+    raises rather than running silently on the CPU.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port's entry points run on the "
+            "card by default -- pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 def _uniform(generator, shape, dtype, device):
     return torch.rand(
         shape, generator=generator, dtype=dtype, device=generator.device
@@ -137,11 +154,13 @@ def mps_init(
 
     ``calibration_phi`` is an already-embedded batch ``(B, N, D)``; if None
     and ``normalize`` is set, a random embedded batch of 16 samples is drawn.
+    ``device=None`` is the card (``resolve_device``).
     """
     if act_fn not in ACT_FNS:
         raise ValueError(f"act_fn must be one of {ACT_FNS}")
     if loss_fn not in LOSS_FNS:
         raise ValueError(f"loss_fn must be one of {LOSS_FNS}")
+    device = resolve_device(device)
 
     scale = float(M) * 0.5 * 0.64 * D if normalize else 1.0
 
@@ -191,6 +210,7 @@ def product_init(
 
     ``canonicalize=True`` needs the canonical gauge, which is not ported yet
     (ROADMAP queue 1 item 2) and raises ``NotImplementedError``.
+    ``device=None`` is the card (``resolve_device``).
     """
     if act_fn not in ACT_FNS or loss_fn not in LOSS_FNS:
         raise ValueError(f"act_fn must be in {ACT_FNS}, loss_fn in {LOSS_FNS}")
@@ -199,6 +219,7 @@ def product_init(
             "product_init(canonicalize=True) needs models/canonical.py, "
             "which is not ported yet (ROADMAP queue 1 item 2)"
         )
+    device = resolve_device(device)
     if calibration_x is not None:
         x = torch.as_tensor(calibration_x, dtype=dtype, device=device)
         psi_sum = torch.sin(np.pi * x / 2) + torch.cos(np.pi * x / 2)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tensornetworkforml_torch.models.mps import MPS, apply_act_fn, mps_forward
+from tensornetworkforml_torch.models.mps import MPS, apply_act_fn, mps_forward, resolve_device
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels.env_scan import forward_scores
 
@@ -22,10 +22,12 @@ from tensornetworkforml_torch.ops.kernels.env_scan import forward_scores
 class Predictor:
     """Fixed-batch predictor for a traveling-label ``MPS`` on one device.
 
+    The model is served on ``device``; ``None`` is the card
+    (``resolve_device``), and a machine without one passes ``"cpu"``.
     ``use_kernel`` selects the fused embed + chain kernel
-    (``ops/kernels/env_scan.py``); by default it is on exactly when the model
-    sits on a CUDA device with D == 2 and the label leg at site 0. Otherwise
-    the plain forward (``mps_forward``) serves.
+    (``ops/kernels/env_scan.py``); by default it is on exactly when the
+    device is a CUDA device, D == 2 and the label leg sits at site 0.
+    Otherwise the plain forward (``mps_forward``) serves.
     """
 
     def __init__(
@@ -48,7 +50,7 @@ class Predictor:
                 "(the boundary-label family) is not ported yet "
                 "(ROADMAP queue 1 item 10)"
             )
-        self.device = torch.device(device) if device is not None else mps.device
+        self.device = resolve_device(device)
         self.mps = mps.replace(
             sites=mps.sites.to(self.device), label_site=mps.label_site.to(self.device)
         )
@@ -62,13 +64,14 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, device=None, **kwargs) -> "Predictor":
-        """Serve an ``.npz`` checkpoint (float32) on ``device``."""
+        """Serve an ``.npz`` checkpoint (float32) on ``device`` (``None``: the card)."""
         from tensornetworkforml_torch.utils.checkpoint import load_any_checkpoint
 
         if path.endswith(".dat"):
             raise NotImplementedError(
                 "reference .dat pickles are not ported yet (ROADMAP queue 1 item 12)"
             )
+        device = resolve_device(device)
         mps = load_any_checkpoint(path, dtype=torch.float32, device=device)
         return cls(mps, device=device, **kwargs)
 

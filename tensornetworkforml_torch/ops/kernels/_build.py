@@ -42,8 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed by its source hash."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` is built, keyed by the hash of its source and
+    of the shared headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

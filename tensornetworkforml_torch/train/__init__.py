@@ -1,0 +1,25 @@
+from tensornetworkforml_torch.train.sweep import (
+    SweepConfig,
+    sweep_once,
+    train_batch,
+    two_site_update,
+)
+from tensornetworkforml_torch.train.epoch import fused_epoch
+from tensornetworkforml_torch.train.trainer import (
+    Trainer,
+    evaluate_accuracy,
+    stall_detected,
+    train_model,
+)
+
+__all__ = [
+    "SweepConfig",
+    "sweep_once",
+    "train_batch",
+    "two_site_update",
+    "fused_epoch",
+    "Trainer",
+    "evaluate_accuracy",
+    "stall_detected",
+    "train_model",
+]

@@ -1,0 +1,59 @@
+"""One training epoch: a full sweep per batch, directions alternating.
+
+The counterpart of the JAX package's ``fused_epoch``. There the epoch is one
+compiled ``lax.scan`` over batch pairs; here it is a Python loop over the
+batches on the model's device, with the same semantics: embedding, forward
+and one full two-site sweep per batch, right sweeps on even batches and
+mirrored left sweeps on odd ones (``Network_class.py:323-333``), so the
+label leg returns to site 0 after an even number of batches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tensornetworkforml_torch.models.mps import MPS
+from tensornetworkforml_torch.ops.embedding import psi_embed
+from tensornetworkforml_torch.train.sweep import SweepConfig, _scalar, _sweep, one_hot_labels
+
+
+def fused_epoch(mps: MPS, x_epoch, y_epoch, lr: float, weight_dec: float,
+                cfg: SweepConfig = None, mesh=None):
+    """Run one epoch; the label leg must start at site 0 and the number of
+    batches must be even. ``x_epoch (n_batches, B, N)`` raw pixels,
+    ``y_epoch (n_batches, B)`` integer labels (arrays or tensors).
+
+    Returns ``(new_mps, batch_accs (n_batches,), step_metrics)`` where
+    ``step_metrics`` holds the per-step series ``accuracy`` and ``MAE`` of
+    shape ``(n_batches, N-1)``. Everything stays on the model's device.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel (mesh) epochs are not ported yet (ROADMAP queue 1 item 11)"
+        )
+    if cfg is None:
+        cfg = SweepConfig(act_fn=mps.act_fn, loss_fn=mps.loss_fn)
+    if mps.l_pos != 0:
+        raise ValueError("fused_epoch expects the label leg at site 0")
+    if len(x_epoch) % 2 != 0:
+        raise ValueError("fused_epoch needs an even number of batches")
+    x = torch.as_tensor(x_epoch).to(dtype=mps.dtype, device=mps.device)
+    y = torch.as_tensor(y_epoch).to(device=mps.device)
+    lr, wd = _scalar(lr, mps), _scalar(weight_dec, mps)
+    ranks = [mps.M] * (mps.N - 1)
+    sites, label = mps.sites, mps.label_site
+    accs, acc_series, mae_series = [], [], []
+    for b in range(x.shape[0]):
+        phi = psi_embed(x[b])
+        sites, label, f0, _, metrics = _sweep(
+            sites, label, phi, one_hot_labels(y[b], mps.L, mps.dtype), lr, wd, ranks,
+            mps.T, cfg, left_dir=b % 2 == 1,
+        )
+        accs.append((f0.argmax(dim=0) == y[b]).to(mps.dtype).mean())
+        acc_series.append(metrics["accuracy"])
+        mae_series.append(metrics["MAE"])
+    return (
+        mps.replace(sites=sites, label_site=label),
+        torch.stack(accs),
+        {"accuracy": torch.stack(acc_series), "MAE": torch.stack(mae_series)},
+    )

@@ -1,0 +1,489 @@
+"""DMRG-style two-site sweep: the training hot path.
+
+The counterpart of the JAX package's ``train/sweep.py``, with the same
+semantics (reference ``Network_class.py:384-962``):
+
+* one full sweep per batch; environments RIGHT of the active pair are stale
+  (from the batch forward), environments LEFT of it are extended with each
+  just-updated site;
+* analytic gradient of the loss through the activation, summed over the
+  batch; exact L2 of the whole MPS through transfer matrices, or plain
+  weight decay;
+* L1 clip (or the normalized step), ascent step ``B + lr * dB``, split back
+  at bond dimension M.
+
+The JAX sweep is one ``lax.scan``; here it is a Python loop over the N-1
+steps, with every scalar (the clip, ``growth_cap``, ``renorm_envs``) kept as
+a tensor ``where`` so a sweep on the card never waits on the host. A LEFT
+sweep is a right sweep on the mirrored chain (sites reversed, bond legs
+swapped), made contiguous before it reaches a kernel.
+
+Engines: ``"xla"`` (the name is kept from the JAX package) runs each step as
+plain tensor operations plus the configured split -- with
+``svd_method="polar"`` the split's subspace iteration is kernel K1;
+``"hybrid"`` runs kernel K2 (``two_site_presplit``) and then K1 on every
+step. ``engine="fused"`` (K7), ``dist_split`` and the factored large-bond
+update are not ported yet and raise ``NotImplementedError``.
+
+``matmul_precision``: every product of the port runs in full float32 (TF32
+stays off), which is what ``"default"``, ``"float32"`` and ``"highest"``
+mean here; reduced-precision modes are a numerics decision not taken yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tensornetworkforml_torch.models.mps import MPS, apply_act_fn, loss_derivative
+from tensornetworkforml_torch.ops import svd as _svd
+from tensornetworkforml_torch.ops.contractions import (
+    boundary_vector,
+    chain_scores,
+    right_env_stack_fused,
+    transfer_append,
+    transfer_suffix_stack,
+)
+from tensornetworkforml_torch.ops.embedding import psi_embed
+from tensornetworkforml_torch.ops.kernels.polar_split import polar_iterate
+from tensornetworkforml_torch.ops.kernels.presplit_kernel import two_site_presplit
+from tensornetworkforml_torch.ops.svd import truncated_svd_split
+
+_FULL_F32 = ("default", "float32", "highest")
+
+
+class SweepConfig(NamedTuple):
+    """Static sweep hyper-structure; the fields and defaults of the JAX
+    package's ``SweepConfig`` (see its docstrings for each option)."""
+
+    act_fn: str = "softmax"
+    loss_fn: str = "full_cross_ent"
+    L2_flag: bool = True
+    svd_method: str = "svd"
+    debug: bool = False
+    rank_mode: str = "fixed"
+    adaptive_tol: float = 1e-4
+    split_mode: str = "shared"
+    update_mode: str = "clip"
+    matmul_precision: str = "default"
+    renorm_envs: bool = False
+    growth_cap: float = 0.0
+    norm_spread: bool = False
+    engine: str = "xla"
+    dist_split: str = "none"
+    dist_mesh: object = None
+    step_metrics: bool = True
+    factored_update: str = "auto"
+
+
+def _mirror_sites(sites: torch.Tensor) -> torch.Tensor:
+    """Reverse the chain and swap left/right bond legs: (n,l,d,r)->(~n,r,d,l)."""
+    return sites.flip(0).permute(0, 3, 2, 1)
+
+
+def _mirror_label(label_site: torch.Tensor) -> torch.Tensor:
+    """(l,d,o,r) -> (r,d,o,l)."""
+    return label_site.permute(3, 1, 2, 0)
+
+
+def _factored_route(cfg: SweepConfig, M: int, D: int) -> bool:
+    """Whether the JAX package would take ``train/factored_step.py`` here."""
+    supported = (
+        not cfg.L2_flag
+        and cfg.split_mode == "canonical"
+        and cfg.svd_method == "polar"
+        and cfg.rank_mode == "fixed"
+        and cfg.dist_split == "none"
+    )
+    if cfg.factored_update == "on" and not supported:
+        raise ValueError(
+            "factored_update='on' requires split_mode='canonical', "
+            "svd_method='polar', L2_flag=False, rank_mode='fixed', "
+            "dist_split='none'"
+        )
+    return cfg.factored_update != "off" and supported and (
+        cfg.factored_update == "on" or M * D > 512
+    )
+
+
+def two_site_update(
+    label_site, A2, x1, x2, l_env, r_env, E2, r2_step, y_onehot, f,
+    lr, weight_dec, rank, T: float, cfg: SweepConfig,
+):
+    """ONE two-site update (the reference's ``sweep_step`` + ``update_B`` +
+    ``tensor_svd``), in right-sweep orientation.
+
+    ``label_site (M,D,L,M)``, right neighbour ``A2 (M,D,M)``, inputs
+    ``x1/x2 (B,D)``, carried left environment ``l_env (B,M)`` and left L2
+    transfer product ``E2 (M,M)``, stale right environment ``r_env (B,M)``
+    and right transfer product ``r2_step (M,M)``, targets ``(L,B)``, the
+    previous output ``f (L,B)``. Returns ``(A_left, new_label_site,
+    new_l_env, new_E2, f_new, metrics)``.
+    """
+    M, D, L, _ = label_site.shape
+    B = x1.shape[0]
+    dtype, dev = label_site.dtype, label_site.device
+    if _factored_route(cfg, M, D):
+        raise NotImplementedError(
+            "this configuration takes the factored large-bond update "
+            "(train/factored_step.py: factored_update='on', or 'auto' with a "
+            "canonical polar fixed-rank split, no L2 and M*D > 512), which is "
+            "not ported yet (ROADMAP queue 1 item 9); pass "
+            "factored_update='off' to materialise the two-site tensor"
+        )
+    if cfg.dist_split != "none":
+        raise NotImplementedError(
+            "dist_split (bond-distributed splits) is not ported yet "
+            "(ROADMAP queue 1 item 11)"
+        )
+
+    # merge the active pair: B[a,i,o,j,c] (left, d1, label, d2, right)
+    B_t = torch.einsum("aiok,kjc->aiojc", label_site, A2)
+
+    f_act = apply_act_fn(f, cfg.act_fn, T)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    if cfg.step_metrics:
+        acc = (f_act.argmax(dim=0) == y_onehot.argmax(dim=0)).to(dtype).mean()
+        mae = (y_onehot - f_act).abs().mean()
+    else:
+        acc = mae = zero
+
+    # dB[a,i,o,j,c] = sum_b loss_der[o,b] l_env[b,a] x1[b,i] x2[b,j] r_env[b,c]
+    loss_der = loss_derivative(f_act, y_onehot, cfg.loss_fn, cfg.act_fn, T)
+    left_part = (l_env[:, :, None] * x1[:, None, :]).reshape(B, M * D)
+    right_part = (x2[:, :, None] * r_env[:, None, :]).reshape(B, D * M)
+    w_t = loss_der.T[:, :, None] * right_part[:, None, :]  # (B, L, D*M)
+    deltaB = (left_part.T @ w_t.reshape(B, L * D * M)).reshape(M, D, L, D, M)
+
+    if cfg.L2_flag:
+        deriv = torch.einsum(
+            "aiojC,Cc->aiojc", torch.einsum("aA,AiojC->aiojC", E2, B_t), r2_step
+        )
+        l2_loss = weight_dec * (B_t * deriv).sum()
+        l2_grad = 2.0 * weight_dec * deriv
+    else:
+        l2_loss = zero
+        l2_grad = weight_dec * B_t
+    deltaB = deltaB - l2_grad
+
+    sum_abs_dB = deltaB.abs().sum()  # recorded pre-clip (reference :742)
+    s_B = B_t.abs().sum()
+    s_dB = sum_abs_dB
+    if cfg.update_mode == "normalized":
+        deltaB = deltaB * torch.where(s_dB > 0, s_B / torch.clamp(s_dB, min=1e-30), 0.0)
+    else:  # L1 gradient clipping (Network_class.py:753-757)
+        deltaB = deltaB * torch.where(s_dB > s_B, s_B / s_dB, 1.0)
+
+    B_new = B_t + lr * deltaB
+    if cfg.growth_cap > 0:
+        s_new = B_new.abs().sum()
+        cap = (1.0 + cfg.growth_cap) * s_B
+        B_new = B_new * torch.where(s_new > cap, cap / torch.clamp(s_new, min=1e-30), 1.0)
+
+    # the network output with the updated B (stale right environment)
+    v = (left_part @ B_new.reshape(M * D, L * D * M)).reshape(B, L, D * M)
+    f_new = (v * right_part[:, None, :]).sum(dim=2).T
+
+    bmat = B_new.reshape(M * D, L * D * M)
+    if bmat.dtype == torch.bfloat16:
+        bmat = bmat.to(torch.float32)
+    keep = rank if cfg.rank_mode == "reference" else None
+    atol = 0.0
+    if cfg.rank_mode == "adaptive":
+        if cfg.svd_method not in ("svd", "cholsvd"):
+            raise ValueError(
+                "rank_mode='adaptive' needs a spectrum-producing split "
+                "(svd_method='svd' or 'cholsvd'), got "
+                f"{cfg.svd_method!r}"
+            )
+        atol = cfg.adaptive_tol
+    left_flat, right_flat = truncated_svd_split(
+        bmat, M, cfg.svd_method, keep=keep, split_mode=cfg.split_mode, adaptive_tol=atol,
+    )
+    A_left = left_flat.reshape(M, D, M).to(dtype)
+    label_new = right_flat.reshape(M, L, D, M).permute(0, 2, 1, 3).to(dtype)
+
+    # extend the carried left environment with the UPDATED site
+    l_env_new = left_part @ A_left.reshape(M * D, M)
+
+    if cfg.renorm_envs:
+        # norm transfer: unit mean env norm, compensated in the label core
+        g = 1.0 / torch.clamp(torch.linalg.vector_norm(l_env_new, dim=1).mean(), min=1e-30)
+        A_left = A_left * g
+        l_env_new = l_env_new * g
+        label_new = label_new / g
+
+    E2_new = transfer_append(E2, A_left) if cfg.L2_flag else E2
+
+    if cfg.step_metrics:
+        metrics = {
+            "accuracy": acc,
+            "MAE": mae,
+            "sum_abs_B": s_B,
+            "sum_abs_deltaB": sum_abs_dB,
+            "mean_abs_f": f.abs().mean(),
+            "L2_loss": l2_loss,
+            "sum_abs_L2_grad": l2_grad.abs().sum(),
+        }
+    else:
+        metrics = {k: zero for k in (
+            "accuracy", "MAE", "sum_abs_B", "sum_abs_deltaB", "mean_abs_f",
+            "L2_loss", "sum_abs_L2_grad",
+        )}
+    if cfg.rank_mode == "adaptive":
+        metrics["live_rank"] = ((right_flat * right_flat).sum(dim=1) > 0).to(dtype).sum()
+    return A_left, label_new, l_env_new, E2_new, f_new, metrics
+
+
+def _spread_label_norm(new_sites, label_final):
+    """Gauge rebalance: label core to unit max-abs, the norm spread
+    geometrically over the N-1 live sites; the function is preserved."""
+    dtype = new_sites.dtype
+    sdt = torch.promote_types(dtype, torch.float32)
+    n = label_final.abs().max().to(sdt)
+    safe = torch.where(n > 0, n, torch.ones((), dtype=sdt, device=n.device))
+    n_live = new_sites.shape[0] - 1
+    c = torch.exp(torch.log(safe) / n_live).to(dtype)
+    return new_sites * c, label_final / safe.to(dtype)
+
+
+def _stack_metrics(steps: list) -> dict:
+    return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+
+
+def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T, cfg):
+    """The hybrid engine's sweep: K2, K1 and two plain products per step."""
+    N, M, D, _ = sites.shape
+    L = label_site.shape[2]
+    B = phi_t.shape[1]
+    dtype, dev = sites.dtype, sites.device
+    if cfg.L2_flag or cfg.split_mode != "canonical" or (
+        cfg.rank_mode != "fixed" or cfg.update_mode != "clip" or cfg.dist_split != "none"
+    ):
+        raise ValueError(
+            "engine='hybrid' requires split_mode='canonical', "
+            "L2_flag=False, rank_mode='fixed', update_mode='clip', "
+            "dist_split='none'"
+        )
+    if M * D > 256:
+        raise ValueError(
+            "engine='hybrid' single-block kernel requires M*D <= 256 "
+            "(VMEM block stacks); larger bonds use the streaming "
+            "gramfree split on the xla engine"
+        )
+    f32 = torch.float32
+    om = _svd.rangefinder_omega(L * D * M, M, f32, dev).reshape(L, D * M, M)
+    y1h = y_onehot.to(f32).contiguous()
+    lr32 = torch.as_tensor(lr, dtype=f32, device=dev).reshape(1)
+    wd32 = torch.as_tensor(weight_dec, dtype=f32, device=dev).reshape(1)
+    # (a,i,o,k) -> (o, (a,i), k): the carry layout
+    lab = label_site.to(f32).permute(2, 0, 1, 3).reshape(L, M * D, M).contiguous()
+    l_env = boundary_vector(M, dtype=f32, device=dev).expand(B, M).contiguous()
+    f = f0.to(f32).contiguous()
+    x = phi_t.to(f32).contiguous()
+    a2ms = sites[1:].to(f32).contiguous().reshape(N - 1, M, D * M)
+    r32 = r_envs.to(f32).contiguous()
+
+    A_lefts, stats_rows = [], []
+    for step in range(N - 1):
+        bnew, y0, g, f_new, left_part, stats = two_site_presplit(
+            lab, a2ms[step], x[step], x[step + 1], l_env, r32[step + 2], y1h, f, om,
+            lr32, wd32, act_fn=cfg.act_fn, loss_fn=cfg.loss_fn, T=T, with_gram=True,
+        )
+        qf = polar_iterate(y0, g, stats[0, 2].reshape(1, 1))
+        r = qf.T @ bnew  # R per label block: exactly the next carry layout
+        if cfg.growth_cap > 0:
+            cap = (1.0 + cfg.growth_cap) * stats[0, 0]
+            gamma = torch.where(stats[0, 3] > cap, cap / torch.clamp(stats[0, 3], min=1e-30), 1.0)
+            r = r * gamma
+            f_new = f_new * gamma
+        l_env_new = left_part @ qf
+        a_left = qf
+        if cfg.renorm_envs:
+            gn = 1.0 / torch.clamp(torch.linalg.vector_norm(l_env_new, dim=1).mean(), min=1e-30)
+            a_left = a_left * gn
+            l_env_new = l_env_new * gn
+            r = r / gn
+        lab = r.reshape(L, M * D, M)
+        l_env, f = l_env_new, f_new
+        A_lefts.append(a_left.reshape(M, D, M).to(dtype))
+        stats_rows.append(stats)
+
+    stats = torch.cat(stats_rows).to(dtype)  # (N-1, 8)
+    zeros = torch.zeros((N - 1,), dtype=dtype, device=dev)
+    metrics = {
+        "accuracy": stats[:, 4],
+        "MAE": stats[:, 5],
+        "sum_abs_B": stats[:, 0],
+        "sum_abs_deltaB": stats[:, 1],
+        "mean_abs_f": stats[:, 6],
+        "L2_loss": zeros,
+        "sum_abs_L2_grad": zeros,
+    }
+    label_final = lab.reshape(L, M, D, M).permute(1, 2, 0, 3).to(dtype)
+    return torch.stack(A_lefts), label_final, f.to(dtype), metrics
+
+
+def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg):
+    """One full right sweep (label leg moves 0 -> N-1). Returns
+    ``(new_sites, new_label_site, f_first, f_final, metrics)`` with per-step
+    metric series of length N-1."""
+    N, M, D, _ = sites.shape
+    B = phi.shape[0]
+    dtype, dev = sites.dtype, sites.device
+    if cfg.matmul_precision not in _FULL_F32:
+        raise NotImplementedError(
+            f"matmul_precision={cfg.matmul_precision!r}: the port runs every "
+            f"product in full float32 ({', '.join(_FULL_F32)}); reduced "
+            "precision is not ported"
+        )
+    if cfg.engine == "fused":
+        raise NotImplementedError(
+            "engine='fused' needs the whole-step kernel K7, which is not "
+            "ported yet (ROADMAP queue 2)"
+        )
+    if cfg.engine not in ("xla", "hybrid"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    e0 = boundary_vector(M, dtype=dtype, device=dev)
+
+    # per-batch precomputation: stale suffix environments (index 0 unused)
+    phi_t = phi.transpose(0, 1).contiguous()  # (N, B, D)
+    r_envs = right_env_stack_fused(sites, phi_t, e0)  # (N+1, B, M)
+    f0 = chain_scores(e0.expand(B, M), label_site, phi[:, 0, :], r_envs[1])
+
+    if cfg.engine == "hybrid":
+        A_lefts, label_final, f_final, metrics = _hybrid_sweep(
+            sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T, cfg
+        )
+    else:
+        r2 = transfer_suffix_stack(sites, e0) if cfg.L2_flag else None
+        no_r2 = torch.zeros((M, M), dtype=dtype, device=dev)
+        label, l_env, E2, f = label_site, e0.expand(B, M), torch.outer(e0, e0), f0
+        lefts, steps = [], []
+        for step in range(N - 1):
+            A_left, label, l_env, E2, f, metr = two_site_update(
+                label, sites[step + 1], phi_t[step], phi_t[step + 1], l_env,
+                r_envs[step + 2], E2, no_r2 if r2 is None else r2[step + 2],
+                y_onehot, f, lr, weight_dec, ranks[step], T, cfg,
+            )
+            lefts.append(A_left)
+            steps.append(metr)
+        A_lefts, label_final, f_final = torch.stack(lefts), label, f
+        metrics = _stack_metrics(steps)
+
+    # slots 0..N-2 hold the new left factors; the label now sits at N-1
+    new_sites = torch.cat([A_lefts, torch.zeros((1, M, D, M), dtype=dtype, device=dev)])
+    if cfg.norm_spread:
+        new_sites, label_final = _spread_label_norm(new_sites, label_final)
+    return new_sites, label_final, f0, f_final, metrics
+
+
+def _sweep(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg, left_dir):
+    """A right sweep, or a left one as the right sweep of the mirrored chain."""
+    if left_dir:
+        new_s, new_l, f0, f_fin, m = _sweep_right_arrays(
+            _mirror_sites(sites).contiguous(),
+            _mirror_label(label_site).contiguous(),
+            phi.flip(1),
+            y_onehot, lr, weight_dec, ranks, T, cfg,
+        )
+        return (
+            _mirror_sites(new_s).contiguous(),
+            _mirror_label(new_l).contiguous(),
+            f0, f_fin, m,
+        )
+    return _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg)
+
+
+def _scalar(v, mps: MPS) -> torch.Tensor:
+    """``v`` as a 0-d tensor of the model's dtype on its device (a fill, not
+    a host-to-device copy, when ``v`` is a Python number)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=mps.dtype, device=mps.device).reshape(())
+    return torch.full((), float(v), dtype=mps.dtype, device=mps.device)
+
+
+def sweep_once(mps: MPS, phi, y_onehot, lr, weight_dec, cfg: SweepConfig = None,
+               bond_profile=None):
+    """One full sweep in the direction implied by ``mps.l_pos`` (the label
+    leg must sit at a chain end). Returns ``(new_mps, f_first, f_final,
+    metrics)``: ``f_first`` is the batch forward before any update and
+    ``metrics`` per-step series of length N-1.
+
+    In ``rank_mode="reference"`` the per-step rank caps follow the
+    reference's bond recurrence from ``bond_profile`` (inferred from the
+    zero structure if omitted); the evolved profile is returned as
+    ``metrics["bond_profile"]``.
+    """
+    if cfg is None:
+        cfg = SweepConfig(act_fn=mps.act_fn, loss_fn=mps.loss_fn)
+    left_dir = mps.l_pos == mps.N - 1
+    if not left_dir and mps.l_pos != 0:
+        raise ValueError(
+            f"sweep requires the label leg at a chain end, got l_pos={mps.l_pos}"
+        )
+    if cfg.rank_mode == "reference":
+        from tensornetworkforml_torch.train.rank_schedule import (
+            effective_bond_profile,
+            reference_rank_schedule,
+        )
+
+        if bond_profile is None:
+            bond_profile = effective_bond_profile(mps)
+        ranks_np, counts_np, new_profile = reference_rank_schedule(
+            bond_profile, mps.N, mps.D, mps.L, left_dir
+        )
+        ranks = [int(r) for r in ranks_np]
+    else:
+        new_profile = None
+        counts_np = np.full((mps.N - 1,), mps.M * mps.D * mps.L * mps.D * mps.M, dtype=np.int64)
+        ranks = [mps.M] * (mps.N - 1)
+
+    new_sites, new_label, f0, f_fin, metrics = _sweep(
+        mps.sites,
+        mps.label_site,
+        torch.as_tensor(phi).to(dtype=mps.dtype, device=mps.device),
+        torch.as_tensor(y_onehot).to(dtype=mps.dtype, device=mps.device),
+        _scalar(lr, mps),
+        _scalar(weight_dec, mps),
+        ranks,
+        mps.T,
+        cfg,
+        left_dir,
+    )
+    # ragged-equivalent means for the reference's debug series
+    metrics = dict(metrics)
+    counts = torch.as_tensor(counts_np, dtype=mps.dtype).to(mps.device)
+    metrics["mean_abs_B"] = metrics.pop("sum_abs_B") / counts
+    metrics["mean_abs_deltaB"] = metrics.pop("sum_abs_deltaB") / counts
+    metrics["mean_abs_L2_grad"] = metrics.pop("sum_abs_L2_grad") / counts
+    if new_profile is not None:
+        metrics["bond_profile"] = new_profile
+    new_mps = mps.replace(
+        sites=new_sites, label_site=new_label, l_pos=0 if left_dir else mps.N - 1,
+    )
+    return new_mps, f0, f_fin, metrics
+
+
+def one_hot_labels(y: torch.Tensor, L: int, dtype) -> torch.Tensor:
+    """Integer labels ``(B,)`` -> one-hot targets ``(L, B)``."""
+    return F.one_hot(y.long(), L).T.to(dtype)
+
+
+def train_batch(mps: MPS, x_raw, y, lr, weight_dec, cfg: SweepConfig = None):
+    """Embed + forward + full sweep on one batch of RAW pixels ``(B, N)``.
+
+    Returns ``(new_mps, batch_accuracy, metrics)``; the accuracy is that of
+    the forward BEFORE the sweep, as in the reference training loop.
+    """
+    x = torch.as_tensor(x_raw).to(dtype=mps.dtype, device=mps.device)
+    y = torch.as_tensor(y).to(device=mps.device)
+    phi = psi_embed(x)
+    new_mps, f0, _, metrics = sweep_once(
+        mps, phi, one_hot_labels(y, mps.L, mps.dtype), lr, weight_dec, cfg
+    )
+    batch_acc = (f0.argmax(dim=0) == y).to(mps.dtype).mean()
+    return new_mps, batch_acc, metrics

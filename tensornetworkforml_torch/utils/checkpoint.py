@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from tensornetworkforml_torch.models.mps import MPS
+from tensornetworkforml_torch.models.mps import MPS, resolve_device
 
 _CKPT_VERSION = 1
 
@@ -88,8 +88,9 @@ def save_checkpoint(mps: MPS, path: str) -> None:
 
 
 def load_checkpoint(path: str, dtype=None, device=None) -> MPS:
-    """Load an MPS from a ``.npz`` checkpoint written by ``save_checkpoint``."""
-    return _read(path, dtype, device)[0]
+    """Load an MPS from a ``.npz`` checkpoint written by ``save_checkpoint``
+    onto ``device`` (``None``: the card, see ``resolve_device``)."""
+    return _read(path, dtype, resolve_device(device))[0]
 
 
 def save_training_state(path: str, mps: MPS, epoch: int) -> None:
@@ -120,6 +121,7 @@ def load_any_checkpoint(path: str, dtype=None, device=None) -> MPS:
 
     The boundary-label family (``"kind": "boundary"``) is not ported yet
     (ROADMAP queue 1 item 10) and raises ``NotImplementedError``.
+    ``device=None`` is the card.
     """
     with np.load(path) as data:
         if "meta" not in data:
@@ -134,4 +136,4 @@ def load_any_checkpoint(path: str, dtype=None, device=None) -> MPS:
             f"{path!r} holds a boundary-label model; that family is not "
             "ported yet (ROADMAP queue 1 item 10)"
         )
-    return load_checkpoint(path, dtype=dtype, device=device)
+    return load_checkpoint(path, dtype=dtype, device=resolve_device(device))

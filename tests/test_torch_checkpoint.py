@@ -42,10 +42,11 @@ def _assert_same_model(t, j):
 def test_jax_checkpoint_loads_in_port(tmp_path):
     j = _jax_model()
     jck.save_checkpoint(j, str(tmp_path / "m.npz"))
-    t = tck.load_checkpoint(str(tmp_path / "m.npz"))
+    t = tck.load_checkpoint(str(tmp_path / "m.npz"), device="cpu")
     assert t.dtype == torch.float64
     _assert_same_model(t, j)
-    t32 = tck.load_any_checkpoint(str(tmp_path / "m.npz"), dtype=torch.float32)
+    t32 = tck.load_any_checkpoint(str(tmp_path / "m.npz"), dtype=torch.float32,
+                                 device="cpu")
     assert t32.dtype == torch.float32
 
 
@@ -60,7 +61,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 def test_both_packages_write_the_same_archive(tmp_path):
     j = _jax_model()
     jck.save_checkpoint(j, str(tmp_path / "j.npz"))
-    tck.save_checkpoint(tck.load_checkpoint(str(tmp_path / "j.npz")),
+    tck.save_checkpoint(tck.load_checkpoint(str(tmp_path / "j.npz"), device="cpu"),
                         str(tmp_path / "t.npz"))
     with np.load(tmp_path / "j.npz") as a, np.load(tmp_path / "t.npz") as b:
         assert sorted(a.files) == sorted(b.files) == ["label_site", "meta", "sites"]

@@ -119,7 +119,8 @@ def _product_pair(calibration_x, N_=N, M_=M):
     kw = dict(N=N_, M=M_, D=D, L=L, noise=0.0, act_fn="linear", loss_fn="MSE",
               calibration_x=calibration_x)
     j = jm.product_init(jax.random.PRNGKey(0), dtype=jnp.float64, **kw)
-    t = tm.product_init(torch.Generator().manual_seed(0), dtype=torch.float64, **kw)
+    t = tm.product_init(torch.Generator().manual_seed(0), dtype=torch.float64,
+                        device="cpu", **kw)
     return j, t
 
 
@@ -147,7 +148,8 @@ def test_product_init_noise_free_matches_jax(rescaled):
 def test_product_init_statistics():
     noise, n, m = 0.05, 12, 8
     g = torch.Generator().manual_seed(5)
-    mps = tm.product_init(g, N=n, M=m, D=D, L=L, noise=noise, dtype=torch.float64)
+    mps = tm.product_init(g, N=n, M=m, D=D, L=L, noise=noise, dtype=torch.float64,
+                          device="cpu")
     base = np.pi / 4  # 1 / (4 / pi): no calibration data
     sites, label = mps.sites.numpy(), mps.label_site.numpy()
     eye = np.broadcast_to(np.eye(m)[:, None, :], (m, D, m))
@@ -170,15 +172,25 @@ def test_product_init_canonicalize_not_ported():
 
 
 def test_product_init_is_fixed_by_the_seed():
-    """Draws happen on the generator's device, whatever ``device`` is."""
-    a = tm.product_init(torch.Generator().manual_seed(7), N=5, M=3, L=2)
-    b = tm.product_init(torch.Generator().manual_seed(7), N=5, M=3, L=2, device="cpu")
+    """Draws happen on the generator's device, whatever ``device`` is; with
+    no ``device`` the model goes to the card, and without a card that
+    raises instead of falling back to the CPU."""
+    a = tm.product_init(torch.Generator().manual_seed(7), N=5, M=3, L=2, device="cpu")
+    if torch.cuda.is_available():
+        b = tm.product_init(torch.Generator().manual_seed(7), N=5, M=3, L=2)
+        assert b.device.type == "cuda"
+        b = b.replace(sites=b.sites.cpu(), label_site=b.label_site.cpu())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tm.product_init(torch.Generator().manual_seed(7), N=5, M=3, L=2)
+        b = tm.product_init(torch.Generator().manual_seed(7), N=5, M=3, L=2,
+                            device=torch.device("cpu"))
     assert torch.equal(a.sites, b.sites) and torch.equal(a.label_site, b.label_site)
 
 
 def test_mps_init_statistics_and_calibration():
     g = torch.Generator().manual_seed(6)
-    raw = tm.mps_init(g, N=N, M=M, D=D, L=L, dtype=torch.float64)
+    raw = tm.mps_init(g, N=N, M=M, D=D, L=L, dtype=torch.float64, device="cpu")
     assert raw.l_pos == 0 and raw.act_fn == "linear"
     s, lab = raw.sites.numpy(), raw.label_site.numpy()
     assert not s[0].any() and not s[N - 1, :, :, 1:].any() and not lab[1:].any()
@@ -186,7 +198,7 @@ def test_mps_init_statistics_and_calibration():
     assert mid.min() >= 0.0 and mid.max() < 1.0 and abs(mid.mean() - 0.5) < 0.05
     phi = t_psi(torch.rand((16, N), generator=g, dtype=torch.float64))
     cal = tm.mps_init(g, N=N, M=M, D=D, L=L, normalize=True, calibration_phi=phi,
-                      dtype=torch.float64)
+                      dtype=torch.float64, device="cpu")
     assert abs(float(tm.mps_forward(cal, phi).abs().max()) - 1.0) < 1e-10
     with pytest.raises(ValueError):
         tm.mps_init(g, N=N, M=M, act_fn="tanh")

@@ -68,7 +68,7 @@ def test_port_serves_what_the_pallas_predictor_serves(tmp_path, jax_model, use_k
 def test_activation_mode_softmax_rows_sum_to_one(jax_model):
     t = mps_from_numpy(np.asarray(jax_model.sites), np.asarray(jax_model.label_site),
                        act_fn="softmax", T=jax_model.T)
-    got = Predictor(t, batch_size=8, activation=True).scores(_requests())
+    got = Predictor(t, batch_size=8, activation=True, device="cpu").scores(_requests())
     np.testing.assert_allclose(got.sum(axis=1), 1.0, rtol=1e-5)
     want = _jax_predictor(jax_model, activation=True).scores(_requests())
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -77,12 +77,12 @@ def test_activation_mode_softmax_rows_sum_to_one(jax_model):
 def test_label_off_site_zero_takes_the_plain_route(jax_model):
     j = jax_model.replace(l_pos=N // 2)
     t = mps_from_numpy(np.asarray(j.sites), np.asarray(j.label_site), l_pos=N // 2)
-    pred = Predictor(t, batch_size=8)
+    pred = Predictor(t, batch_size=8, device="cpu")
     assert not pred.use_kernel
     np.testing.assert_allclose(pred.scores(_requests()), _jax_predictor(j).scores(_requests()),
                                rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="site 0"):
-        Predictor(t, batch_size=8, use_kernel=True).scores(_requests())
+        Predictor(t, batch_size=8, use_kernel=True, device="cpu").scores(_requests())
 
 
 def test_unported_inputs_raise_naming_the_roadmap(tmp_path, jax_model):
@@ -102,7 +102,8 @@ def test_predictor_leaves_the_callers_model_alone(tmp_path):
     assert pred.mps is not t and t.dtype == torch.float64
     save_checkpoint(t, str(tmp_path / "m.npz"))
     pred.warmup()
-    assert Predictor.from_checkpoint(str(tmp_path / "m.npz")).mps.dtype == torch.float32
+    assert Predictor.from_checkpoint(str(tmp_path / "m.npz"),
+                                    device="cpu").mps.dtype == torch.float32
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -131,5 +132,5 @@ def test_predictor_on_card_launches_the_kernel():
     launches = env_scan.right_env_chain.launches
     got = pred.scores(_requests())
     assert env_scan.right_env_chain.launches == launches + 3  # 23 requests, 3 chunks
-    want = Predictor(mps, batch_size=8).scores(_requests())
+    want = Predictor(mps, batch_size=8, device="cpu").scores(_requests())
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max())
