@@ -7,7 +7,8 @@ Run from the root of the repository, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 The model is the flagship: 10-class pooled MNIST, N=196, M=128, D=2, L=10,
-linear/MSE, random weights from a seed, synthetic pooled images. Phases:
+linear/MSE, random weights from a seed, synthetic pooled images; the large
+phase trains the same model at M=512. Phases:
   1. device  -- the card, as nvidia-smi reports its name and power limit;
   2. build   -- compile every CUDA kernel from csrc/ (one nvcc per source,
                 all started together) and print ptxas's report for each;
@@ -25,20 +26,33 @@ linear/MSE, random weights from a seed, synthetic pooled images. Phases:
   6. hybrid  -- fused_epoch with engine="hybrid" on 2 batches: K2 and K1 must
                 each launch 2 x 195 times; the first sweep is held against
                 the xla-engine polar sweep;
-  7. timing  -- each kernel vs its plain version with CUDA events (plain,
-                kernel, kernel, plain), ms per sweep on both engines, the
-                device time of a profiled sweep, Predictor samples/s.
+  7. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
+                two-site matrix, held against hybrid_polar_split;
+  8. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
+                against their plain versions on the two-site matrix of a
+                mid-chain step and at a ragged shape; train_model on 2
+                batches through the factored route (no kernel launches); one
+                sweep with factored_update="off", whose gram-free split runs
+                K4a and K4b 195 times each, held against the same sweep with
+                the plain versions and, by quality, against the factored one;
+  9. timing  -- each kernel vs its plain version with CUDA events (plain,
+                kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
+                yardstick call), ms per sweep on both engines and on both
+                M=512 routes, the device time of a profiled sweep of each
+                (and the host time of the M=512 ones), Predictor samples/s.
 
-Launch counts are set to 0 just before each path (serve, train, hybrid) and
-read just after it; the comparisons with plain versions happen outside those
-windows. The line before the last is a JSON object describing each kernel;
-the last line is {"ok": true, "device": {...}}. Without a CUDA device the
+Launch counts are set to 0 just before each path (serve, train, hybrid,
+two-stage, the M=512 training and the M=512 gram-free sweep) and read just
+after it; the comparisons with plain versions happen outside those windows.
+The line before the last is a JSON object describing each kernel; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing either, and any failed check exits
 non-zero too.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -54,6 +68,7 @@ from tensornetworkforml_torch.data.loader import ArrayLoader, NumpyDataset
 from tensornetworkforml_torch.data.mnist import max_pool_2x2, synthetic_mnist
 from tensornetworkforml_torch.models.mps import mps_forward, product_init
 from tensornetworkforml_torch.models.serving import Predictor
+from tensornetworkforml_torch.ops import svd as svd_mod
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels import _build, env_scan, polar_split, presplit_kernel
 from tensornetworkforml_torch.train import epoch as epoch_mod
@@ -92,6 +107,24 @@ K1_PROJ_TOL, K1_REC_TOL, K1_ISO_TOL = 1e-3, 1e-4, 1e-4
 # relative to max|f|: per-step f32 differences of ~1e-6 are amplified along
 # the 195-step sweep to an expected ~1e-3; 2e-2 leaves a margin.
 SWEEP_TOL = 2e-2
+# K4a, K4b and K5 vs plain, each output relative to its max: float32 sums of
+# up to 10^4 terms (J = 10240 at M=512) in another order, against the
+# float32 plain version and a float64 run of it.
+RED_TOL = 1e-4
+# The large-bond phase: bench.py's stretch_m512_polar (N=196, M=512, L=10,
+# B=256, polar), 2 batches of train_model.
+M_LARGE, LARGE_BATCHES = 512, 2
+# One M=512 sweep through the gram-free split vs through the factored
+# update, by quality. The two routes run different Newton-Schulz schedules
+# (the factored one's is shorter at q >= 512), and the factored update
+# carries f across a step's truncation instead of recomputing it, so its
+# f_final drifts from its own model's output (the JAX package's does the
+# same). So the gram-free f_final is held against the factored model's
+# output on the same batch, and the two models' scores on fresh requests
+# against each other: within 0.25 of max|f|, several times the gap that
+# smaller bonds showed on the CPU, which grew with M; and their accuracies
+# on fresh requests within 0.05 (13 of 256).
+QUALITY_F_TOL, QUALITY_ACC_TOL = 0.25, 0.05
 DEVICE = "cuda"
 # peak rates of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
@@ -126,17 +159,18 @@ def phase_device() -> str:
     return kind
 
 
-KERNELS = {  # source name -> module whose _lib() builds and binds it
-    "env_scan": env_scan,
-    "polar_iterate": polar_split,
-    "presplit": presplit_kernel,
+KERNELS = {  # source name -> the function that builds and binds it
+    "env_scan": env_scan._lib,
+    "polar_iterate": polar_split._lib,
+    "presplit": presplit_kernel._lib,
+    "polar_sketch": polar_split._sketch_lib,
 }
 
 
 def phase_build() -> None:
     def build(name):
         t0 = time.perf_counter()
-        KERNELS[name]._lib()
+        KERNELS[name]()
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -285,16 +319,23 @@ def phase_kernel(mps, x_big: torch.Tensor, captured: dict) -> dict:
 
 # ---- phases 4-6: the main paths ---------------------------------------------
 
+WRAPPERS = {
+    "right_env_chain": env_scan.right_env_chain,
+    "polar_iterate": polar_split.polar_iterate,
+    "two_site_presplit": presplit_kernel.two_site_presplit,
+    "gramfree_sketch": polar_split.gramfree_sketch,
+    "gramfree_gmul": polar_split.gramfree_gmul,
+    "polar_sketch_gram": polar_split.polar_sketch_gram,
+}
+
+
 def reset_counts() -> None:
-    env_scan.right_env_chain.launches = 0
-    polar_split.polar_iterate.launches = 0
-    presplit_kernel.two_site_presplit.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def counts() -> dict:
-    return {"right_env_chain": env_scan.right_env_chain.launches,
-            "polar_iterate": polar_split.polar_iterate.launches,
-            "two_site_presplit": presplit_kernel.two_site_presplit.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def phase_serve(mps, requests: np.ndarray) -> int:
@@ -432,7 +473,265 @@ def phase_hybrid(mps0, x_tr, y_tr, x_fresh) -> dict:
     return launched
 
 
-# ---- phase 7: timing ----------------------------------------------------------
+def phase_two_stage(captured) -> dict:
+    """polar_split_two_stage, the entry point that runs K5 then K1, on the
+    flagship step's two-site matrix, held against hybrid_polar_split with
+    K1's tolerances."""
+    bmat = captured["bmat"]
+    reset_counts()
+    q, r = polar_split.polar_split_two_stage(bmat, M)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["polar_sketch_gram"] != 1 or launched["polar_iterate"] != 1:
+        fail(f"polar_split_two_stage launched K5 {launched['polar_sketch_gram']} and K1 "
+             f"{launched['polar_iterate']} times (want 1 each)")
+    qh, rh = polar_split.hybrid_polar_split(bmat, M)
+    if q.shape != qh.shape or r.shape != rh.shape or not (torch.isfinite(q).all()
+                                                           and torch.isfinite(r).all()):
+        fail(f"polar_split_two_stage gave {tuple(q.shape)}, {tuple(r.shape)} or non-finite values")
+    q64, h64, b64 = q.double(), qh.double(), bmat.double()
+    proj = float((q64 @ q64.T - h64 @ h64.T).abs().max())
+    rec = float((q64 @ r.double() - h64 @ rh.double()).abs().max() / b64.abs().max())
+    live = torch.linalg.vector_norm(q64, dim=0) > 0.5
+    iso = float((q64[:, live].T @ q64[:, live] - torch.eye(int(live.sum()), dtype=torch.float64,
+                                                          device=q.device)).abs().max())
+    ok = proj <= K1_PROJ_TOL and rec <= K1_REC_TOL and iso <= K1_ISO_TOL
+    print(f"[two-stage] polar_split_two_stage I={bmat.shape[0]} J={bmat.shape[1]} q={M} "
+          f"(flagship step {CAPTURE_STEP}): K5 launches 1, K1 launches 1; vs hybrid_polar_split "
+          f"|QQt-Q'Q't|={proj:.3g} (tol {K1_PROJ_TOL:g}) |QR-Q'R'|/max|B|={rec:.3g} (tol "
+          f"{K1_REC_TOL:g}) iso={iso:.3g} (tol {K1_ISO_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("polar_split_two_stage disagrees with hybrid_polar_split")
+    return launched
+
+
+# ---- phase 8: the large-bond path (M=512) -------------------------------------
+
+def large_cfg(factored: str) -> SweepConfig:
+    return flagship_cfg("xla")._replace(factored_update=factored)
+
+
+def capture_large(mps, xb, yb) -> dict:
+    """The two-site matrix of step CAPTURE_STEP of a gram-free M=512 sweep,
+    and the inputs its split hands K4a and K4b."""
+    seen = {"n": 0}
+    real = sweep_mod.truncated_svd_split
+
+    def spy(bmat, *args, **kwargs):
+        if seen["n"] == CAPTURE_STEP:
+            seen["bmat"] = bmat
+            raise _Captured
+        seen["n"] += 1
+        return real(bmat, *args, **kwargs)
+
+    with mock.patch.object(sweep_mod, "truncated_svd_split", spy):
+        try:
+            sweep_once(mps, psi_embed(xb), one_hot_labels(yb, L, torch.float32), LR, WD,
+                       large_cfg("off"))
+        except _Captured:
+            pass
+    if "bmat" not in seen:
+        fail(f"the M={M_LARGE} sweep never reached step {CAPTURE_STEP}")
+    bmat = seen["bmat"].to(torch.float32).contiguous()
+    inputs = {}
+
+    def keep(name, fn):
+        # wraps: the wrapper counts its launches on whatever its module's
+        # name for it holds, here this spy
+        @functools.wraps(fn)
+        def run(*args):
+            inputs[name] = args
+            return fn(*args)
+        return run
+
+    with mock.patch.object(polar_split, "gramfree_sketch",
+                           keep("k4a", polar_split.gramfree_sketch)), \
+            mock.patch.object(polar_split, "gramfree_gmul", keep("k4b", polar_split.gramfree_gmul)):
+        polar_split.gramfree_split(bmat, M_LARGE)
+    return {"bmat": bmat, "k4a": inputs["k4a"], "k4b": inputs["k4b"]}
+
+
+def compare_outputs(kernel, name, got, args, reference) -> float:
+    """Outputs of one kernel launch vs its plain version in float32 and in
+    float64 on the same inputs, each relative to the output's max; returns
+    the largest error against the float32 plain version."""
+    want32 = reference(*args)
+    want64 = reference(*(a.double() for a in args))
+    rel, worst = [], 0.0
+    for g, w32, w64 in zip(got, want32, want64):
+        if g.shape != w32.shape or not torch.isfinite(g).all():
+            fail(f"{kernel} {name}: output {tuple(g.shape)} not finite or wrong shape")
+        err32 = float((g - w32).abs().max())
+        err64 = float((g.double() - w64).abs().max())
+        worst = max(worst, err32)
+        rel.append(max(err32, err64) / max(float(w64.abs().max()), 1e-30))
+    ok = max(rel) <= RED_TOL
+    print(f"[kernel] {kernel} {name}: relative errors {', '.join(f'{r:.2g}' for r in rel)} "
+          f"(tol {RED_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: {kernel} disagrees with its plain version")
+    return worst
+
+
+def compare_reductions(name, bmat, om, y1) -> dict:
+    errs = {}
+    got = polar_split.gramfree_sketch(bmat, om)
+    torch.cuda.synchronize()
+    errs["gramfree_sketch"] = compare_outputs("gramfree_sketch (y0, n2)", name, got, (bmat, om),
+                                              polar_split.gramfree_sketch_reference)
+    got = (polar_split.gramfree_gmul(bmat, y1),)
+    torch.cuda.synchronize()
+    errs["gramfree_gmul"] = compare_outputs(
+        "gramfree_gmul (z)", name, got, (bmat, y1),
+        lambda b, y: (polar_split.gramfree_gmul_reference(b, y),))
+    got = polar_split.polar_sketch_gram(bmat, om)
+    torch.cuda.synchronize()
+    errs["polar_sketch_gram"] = compare_outputs("polar_sketch_gram (y, G, n2)", name, got,
+                                                (bmat, om),
+                                                polar_split.polar_sketch_gram_reference)
+    if not torch.equal(got[1], got[1].T):
+        fail(f"{name}: K5's Gram is not exactly symmetric")
+    return errs
+
+
+def flagship_sketch_inputs(captured):
+    """What polar_split_two_stage hands K5 on the flagship step: B and Omega."""
+    bmat = captured["bmat"]
+    return bmat, svd_mod.rangefinder_omega(bmat.shape[1], M, torch.float32, bmat.device)
+
+
+def phase_large_kernels(large, captured) -> dict:
+    bmat, om = large["k4a"]
+    _, y1 = large["k4b"]
+    I, J = bmat.shape
+    errs = [compare_reductions(f"M={M_LARGE} step {CAPTURE_STEP} I={I} J={J} q={M_LARGE}",
+                               bmat, om, y1)]
+    b128, om128 = flagship_sketch_inputs(captured)
+    got = polar_split.polar_sketch_gram(b128, om128)
+    torch.cuda.synchronize()
+    errs.append({"polar_sketch_gram": compare_outputs(
+        "polar_sketch_gram (y, G, n2)", f"flagship step {CAPTURE_STEP} I={M * D} "
+        f"J={b128.shape[1]} q={M}", got, (b128, om128), polar_split.polar_sketch_gram_reference)})
+    gen = torch.Generator().manual_seed(SEED + 5)
+    ri, rj, rq = 77, 1000, 47  # ragged: I, J and q off every tile size, q odd
+    b = torch.randn((ri, rj), generator=gen) / np.sqrt(rj)
+    b[:, [0, 3, rj - 1]] = 0.0  # dead columns
+    om_r = torch.randn((rj, rq), generator=gen)
+    y1_r = torch.linalg.qr(torch.randn((ri, rq), generator=gen))[0].contiguous()
+    errs.append(compare_reductions(f"ragged I={ri} J={rj} q={rq}", b.to(DEVICE),
+                                   om_r.to(DEVICE), y1_r.to(DEVICE)))
+    return {k: max(e[k] for e in errs if k in e) for k in errs[0]}
+
+
+def large_model(requests):
+    return product_init(torch.Generator().manual_seed(SEED), N=N, M=M_LARGE, D=D, L=L,
+                        act_fn="linear", loss_fn="MSE", calibration_x=requests[:512])
+
+
+def phase_large_train(mps0, x_tr, y_tr, x_val, y_val) -> float:
+    """train_model at M=512: the auto rule sends every step to the factored
+    update (M*D > 512) with norm_spread on (M >= 256); no kernel runs."""
+    n = LARGE_BATCHES * BATCH
+    train_loader = ArrayLoader(NumpyDataset(x_tr[:n], y_tr[:n]), BATCH, drop_last=True)
+    val_loader = ArrayLoader(NumpyDataset(x_val, y_val), BATCH, drop_last=True)
+    steps = []
+    real = sweep_mod.two_site_update_factored
+
+    def spy(*args):
+        steps.append(args[-1])  # the step's SweepConfig
+        return real(*args)
+
+    torch.cuda.synchronize()
+    with mock.patch.object(sweep_mod, "two_site_update_factored", spy):
+        reset_counts()
+        t0 = time.perf_counter()
+        mps, val_acc, var_hist = train_model(
+            mps0, train_loader, val_loader, lr=LR, n_epochs=1, weight_dec=WD, L2_flag=False,
+            svd_method="polar", split_mode="canonical", verbose=False, warmup_epochs=0,
+            restarts=0,
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+    if not (torch.isfinite(mps.sites).all() and torch.isfinite(mps.label_site).all()):
+        fail(f"train_model at M={M_LARGE} left a non-finite model")
+    if len(steps) != LARGE_BATCHES * STEPS or not all(
+            c.factored_update == "auto" and c.norm_spread for c in steps):
+        fail(f"train_model at M={M_LARGE} took {len(steps)} factored steps (want "
+             f"{LARGE_BATCHES * STEPS}, each with factored_update='auto' and norm_spread on)")
+    if any(launched[k] for k in ("gramfree_sketch", "gramfree_gmul", "polar_sketch_gram",
+                                 "polar_iterate", "two_site_presplit")):
+        fail(f"the factored route launched split kernels: {launched}")
+    if var_hist.shape != (1, 2, LARGE_BATCHES * STEPS) or len(val_acc) != 1:
+        fail(f"train_model returned var_hist {var_hist.shape}, {len(val_acc)} val accuracies")
+    print(f"[large] train_model N={N} M={M_LARGE} L={L} B={BATCH}, polar split, "
+          f"{LARGE_BATCHES} batches (a right and a left sweep): {seconds:.2f} s "
+          f"({seconds / LARGE_BATCHES * 1e3:.1f} ms/batch, validation included); "
+          f"{len(steps)} factored steps, {sum(c.norm_spread for c in steps)} with norm_spread "
+          f"on; kernel launches {launched} "
+          f"(the factored route runs no kernel: K4a and K4b 0); val acc {val_acc[0]:.4f}; "
+          f"model finite")
+    return seconds / LARGE_BATCHES
+
+
+def plain_reductions():
+    return (mock.patch.object(polar_split, "gramfree_sketch",
+                              polar_split.gramfree_sketch_reference),
+            mock.patch.object(polar_split, "gramfree_gmul", polar_split.gramfree_gmul_reference))
+
+
+def large_sweep(mps, xb, yb, factored, plain=False):
+    args = (mps, psi_embed(xb), one_hot_labels(yb, L, torch.float32), LR, WD,
+            large_cfg(factored))
+    if not plain:
+        return sweep_once(*args)
+    p1, p2 = plain_reductions()
+    with p1, p2:
+        return sweep_once(*args)
+
+
+def fresh_accuracy(mps, x, y) -> float:
+    scores = mps_forward(mps, psi_embed(x))
+    return float((scores.argmax(dim=0) == y).float().mean())
+
+
+def phase_large_sweep(mps0, xb, yb, x_fresh, y_fresh) -> dict:
+    torch.cuda.synchronize()
+    reset_counts()
+    kern = large_sweep(mps0, xb, yb, "off")
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["gramfree_sketch"] != STEPS or launched["gramfree_gmul"] != STEPS:
+        fail(f"the gram-free M={M_LARGE} sweep launched K4a {launched['gramfree_sketch']} and K4b "
+             f"{launched['gramfree_gmul']} times (want {STEPS} each)")
+    print(f"[large] sweep with factored_update='off' (gram-free split at I={M_LARGE * D}): "
+          f"kernel launches {launched}")
+    hold_sweeps("large gram-free", kern, large_sweep(mps0, xb, yb, "off", plain=True), x_fresh)
+    fact = large_sweep(mps0, xb, yb, "auto")
+    for what, res in (("gram-free", kern), ("factored", fact)):
+        if not (torch.isfinite(res[0].sites).all() and torch.isfinite(res[2]).all()):
+            fail(f"the {what} M={M_LARGE} sweep left non-finite values")
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    phi = psi_embed(xb)
+    fact_out = mps_forward(fact[0], phi)
+    batch = rel(kern[2], fact_out)
+    fresh = rel(mps_forward(kern[0], psi_embed(x_fresh)), mps_forward(fact[0], psi_embed(x_fresh)))
+    acc_g, acc_f = fresh_accuracy(kern[0], x_fresh, y_fresh), fresh_accuracy(fact[0], x_fresh,
+                                                                             y_fresh)
+    ok = max(batch, fresh) <= QUALITY_F_TOL and abs(acc_g - acc_f) <= QUALITY_ACC_TOL
+    print(f"[large] gram-free vs factored sweep: gram-free f_final vs the factored model's "
+          f"batch output {batch:.3g}, fresh scores {fresh:.3g} of max|f| (tol "
+          f"{QUALITY_F_TOL:g}); accuracy on {len(y_fresh)} fresh requests {acc_g:.4f} vs "
+          f"{acc_f:.4f} (tol {QUALITY_ACC_TOL:g}) {'ok' if ok else 'FAIL'}; f_final of the two "
+          f"sweeps {rel(kern[2], fact[2]):.3g} apart; carried f_final vs own model's batch output: "
+          f"gram-free {rel(kern[2], mps_forward(kern[0], phi)):.3g}, factored "
+          f"{rel(fact[2], fact_out):.3g}")
+    if not ok:
+        fail(f"the gram-free and factored M={M_LARGE} sweeps differ in quality")
+    return launched
+
+
+# ---- phase 9: timing ----------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 20) -> float:
     fn()
@@ -455,13 +754,17 @@ def host_ms(fn, reps: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def turns(name, kern, plain, reps=20):
-    """Kernel vs plain in turns (plain, kernel, kernel, plain); mean ms each."""
-    p1, k1, k2, p2 = (cuda_ms(plain, reps), cuda_ms(kern, reps), cuda_ms(kern, reps),
-                      cuda_ms(plain, reps))
+def turns(name, kern, plain, reps=20, library=None):
+    """Kernel vs plain in turns (plain, kernel, kernel, plain), with the
+    PyTorch-call yardstick, where there is one, in the middle; mean ms of
+    each (None for a missing yardstick)."""
+    p1, k1 = cuda_ms(plain, reps), cuda_ms(kern, reps)
+    lib = [cuda_ms(library, reps) for _ in range(2)] if library is not None else None
+    k2, p2 = cuda_ms(kern, reps), cuda_ms(plain, reps)
     print(f"[timing] {name}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, plain "
-          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us")
-    return (k1 + k2) / 2, (p1 + p2) / 2
+          f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us"
+          + (f", PyTorch call {lib[0] * 1e3:.1f} / {lib[1] * 1e3:.1f} us" if lib else ""))
+    return (k1 + k2) / 2, (p1 + p2) / 2, sum(lib) / 2 if lib else None
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -513,23 +816,112 @@ def device_time_table(fn) -> dict:
     return {"wall_ms": wall, "by_kernel_ms": table}
 
 
+def host_time_line(what, fn) -> None:
+    """Host time by PyTorch operator over one call of ``fn`` (torch.profiler,
+    CPU only): where the host spends a sweep that leaves the card idle. The
+    sweep has run before, so nothing is built or allocated for the first time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda ev: -ev.self_cpu_time_total)
+    total = sum(ev.self_cpu_time_total for ev in ops) / 1e3
+    print(f"[profile] {what}: host self time {total:.1f} ms in {sum(ev.count for ev in ops)} "
+          f"operator calls; top: " + "; ".join(
+              f"{ev.key} {ev.self_cpu_time_total / 1e3:.1f} ms / {ev.count}" for ev in ops[:6]))
+
+
+# the port's kernels -> parts of their CUDA kernels' names in a profile; a
+# name counts for the first entry it matches
+PROFILE_KERNELS = {
+    "K1": ("polar_resident_kernel", "polar_streaming_kernel"),
+    "K2": ("grad_kernel", "update_kernel", "reduce_kernel", "finish_kernel"),
+    "K4/K5": ("sketch_tile_kernel", "sketch_finish_kernel", "sketch_bt_kernel"),
+}
+
+
+def profile_owner(name: str):
+    """The port's kernel that a profiled CUDA kernel belongs to, by its
+    demangled name ``(anonymous namespace)::<kernel>(<args>)``, or None."""
+    return next((kern for kern, parts in PROFILE_KERNELS.items()
+                 if any(f"::{p}(" in name for p in parts)), None)
+
+
 def summarise_profile(engine, prof, wall_ms) -> None:
     """Device time by kernel over one profiled sweep. The idle share is taken
     against the unprofiled sweep's wall time ``wall_ms``: the tracer inflates
     the host side of a sweep of ~30 small launches per step."""
     by = prof["by_kernel_ms"]
     busy = sum(by.values())
-    k1 = sum(v for k, v in by.items() if "polar_resident_kernel" in k
-             or "polar_streaming_kernel" in k)
-    k2 = sum(v for k, v in by.items()
-             if any(s in k for s in ("grad_kernel", "update_kernel", "reduce_kernel",
-                                     "finish_kernel")))
+    ours = {kern: sum(v for k, v in by.items() if profile_owner(k) == kern)
+            for kern in PROFILE_KERNELS}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] {engine} sweep: device busy {busy:.1f} ms of {wall_ms:.1f} ms unprofiled "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}; profiled wall "
-          f"{prof['wall_ms']:.1f} ms); K1 {k1:.1f} ms, "
-          f"K2 {k2:.1f} ms, other {busy - k1 - k2:.1f} ms; top: "
+          f"{prof['wall_ms']:.1f} ms); "
+          + ", ".join(f"{kern} {v:.1f} ms" for kern, v in ours.items())
+          + f", other {busy - sum(ours.values()):.1f} ms; top: "
           + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+
+
+def sketch_work(I, J, q, gram):
+    """FLOPs and bytes of K4a (gram=False) or K5 (gram=True): B read once,
+    Omega read once, y, n2 (and G) written once; the squares of n2 count as
+    one FMA per element of B."""
+    flops = 2.0 * I * J * q + 2.0 * I * J + (2.0 * I * I * J if gram else 0.0)
+    return flops, 4.0 * (I * J + J * q + I * q + 1 + (I * I if gram else 0))
+
+
+def gmul_work(I, J, q):
+    return 4.0 * I * J * q, 4.0 * (I * J + 2 * I * q)
+
+
+def phase_large_timing(mps, large, captured, xb, yb) -> dict:
+    """K4a, K4b and K5 at M=512 in turns with their plain versions and their
+    cuBLAS yardsticks (TF32 off); K5 also at the flagship two-stage shape;
+    ms per M=512 sweep on both routes, and a profiled sweep of each."""
+    ms = {}
+    bmat, om = large["k4a"]
+    _, y1 = large["k4b"]
+    shape = f"I={bmat.shape[0]} J={bmat.shape[1]} q={M_LARGE}"
+    ms["gramfree_sketch"] = turns(
+        f"gramfree_sketch {shape}", lambda: polar_split.gramfree_sketch(bmat, om),
+        lambda: polar_split.gramfree_sketch_reference(bmat, om), library=lambda: bmat @ om)
+    ms["gramfree_gmul"] = turns(
+        f"gramfree_gmul {shape}", lambda: polar_split.gramfree_gmul(bmat, y1),
+        lambda: polar_split.gramfree_gmul_reference(bmat, y1),
+        library=lambda: bmat @ (bmat.T @ y1))
+    ms[("polar_sketch_gram", M_LARGE)] = turns(
+        f"polar_sketch_gram {shape}", lambda: polar_split.polar_sketch_gram(bmat, om),
+        lambda: polar_split.polar_sketch_gram_reference(bmat, om),
+        library=lambda: (bmat @ om, bmat @ bmat.T))
+    b128, om128 = flagship_sketch_inputs(captured)
+    ms["polar_sketch_gram"] = turns(
+        f"polar_sketch_gram I={b128.shape[0]} J={b128.shape[1]} q={M} (flagship two-stage)",
+        lambda: polar_split.polar_sketch_gram(b128, om128),
+        lambda: polar_split.polar_sketch_gram_reference(b128, om128),
+        library=lambda: (b128 @ om128, b128 @ b128.T))
+
+    sweep_ms = {}
+    for route in ("auto", "off", "off", "auto"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        large_sweep(mps, xb, yb, route)
+        torch.cuda.synchronize()
+        sweep_ms.setdefault(route, []).append((time.perf_counter() - t0) * 1e3)
+    names = {"auto": "factored", "off": "gram-free"}
+    for route, v in sweep_ms.items():
+        print(f"[timing] M={M_LARGE} sweep, {names[route]} route (factored_update='{route}'): "
+              f"{v[0]:.1f} / {v[1]:.1f} ms, {BATCH / (sum(v) / 2) * 1e3:.0f} samples/s")
+    ms["large_sweep"] = {names[k]: sum(v) / 2 for k, v in sweep_ms.items()}
+    for route in ("auto", "off"):
+        summarise_profile(f"M={M_LARGE} {names[route]}",
+                          device_time_table(lambda: large_sweep(mps, xb, yb, route)),
+                          ms["large_sweep"][names[route]])
+        host_time_line(f"M={M_LARGE} {names[route]} sweep",
+                       lambda: large_sweep(mps, xb, yb, route))
+    return ms
 
 
 def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
@@ -579,6 +971,9 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
     return ms
 
 
+T_START = time.perf_counter()
+
+
 def main() -> None:
     kind = phase_device()
     phase_build()
@@ -586,7 +981,7 @@ def main() -> None:
     x_big = torch.as_tensor(requests, device=DEVICE)
     x_tr, y_tr = pooled(TRAIN_BATCHES * BATCH, seed=SEED + 2)
     x_val, y_val = pooled(BATCH, seed=SEED + 3)
-    x_fresh = torch.as_tensor(pooled(BATCH, seed=SEED + 4)[0], device=DEVICE)
+    x_fresh, y_fresh = (torch.as_tensor(a, device=DEVICE) for a in pooled(BATCH, seed=SEED + 4))
     mps = product_init(torch.Generator().manual_seed(SEED), N=N, M=M, D=D, L=L,
                        act_fn="linear", loss_fn="MSE", calibration_x=requests[:512])
     if mps.device.type != "cuda":
@@ -600,17 +995,39 @@ def main() -> None:
     launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
                                                            x_fresh)
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
+    launches["polar_sketch_gram"] = phase_two_stage(captured)["polar_sketch_gram"]
+
+    big = large_model(requests)
+    if big.device.type != "cuda":
+        fail(f"product_init placed the M={M_LARGE} model on {big.device}, not on the card")
+    print(f"[model] product_init N={N} M={M_LARGE} D={D} L={L} on {big.device}, "
+          f"{big.sites.numel() * 4 / 1e6:.1f} MB of sites")
+    xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
+    yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
+    large = capture_large(big, xb, yb)
+    errs.update(phase_large_kernels(large, captured))
+    large_batch_s = phase_large_train(big, x_tr, y_tr, x_val, y_val)
+    launched = phase_large_sweep(big, xb, yb, x_fresh, y_fresh)
+    launches["gramfree_sketch"] = launched["gramfree_sketch"]
+    launches["gramfree_gmul"] = launched["gramfree_gmul"]
+
     ms = phase_timing(mps, requests, x_big, captured, x_tr, y_tr)
+    ms.update(phase_large_timing(big, large, captured, xb, yb))
 
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
+    I_big, J_big = large["bmat"].shape
     work = {
         "right_env_chain": chain_work(N - 1, M, BATCH),
         "polar_iterate": polar_work(M * D, M, *pe),
         "two_site_presplit": presplit_work(L, M * D, M, D * M, BATCH, M),
+        "gramfree_sketch": sketch_work(I_big, J_big, M_LARGE, False),
+        "gramfree_gmul": gmul_work(I_big, J_big, M_LARGE),
+        "polar_sketch_gram": sketch_work(M * D, L * D * M, M, True),
     }
     for name, (flops, nbytes) in list(work.items()) + [
-            ("right_env_chain B=8192", chain_work(N - 1, M, BIG))]:
+            ("right_env_chain B=8192", chain_work(N - 1, M, BIG)),
+            (f"polar_sketch_gram M={M_LARGE}", sketch_work(I_big, J_big, M_LARGE, True))]:
         b_ms, b_by = bound_ms(flops, nbytes)
         print(f"[bound] {name}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> {b_ms * 1e3:.2f} us "
               f"({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s f32 and {HBM_BYTES / 1e12:g} TB/s")
@@ -622,6 +1039,12 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:566", "polar_iterate"),
         ("two_site_presplit", "presplit.cu",
          "tensornetworkforml_tpu/ops/kernels/presplit_kernel.py:69", "two_site_presplit"),
+        ("gramfree_sketch", "polar_sketch.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:321", "gramfree_sketch"),
+        ("gramfree_gmul", "polar_sketch.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:334", "gramfree_gmul"),
+        ("polar_sketch_gram", "polar_sketch.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:551", "polar_sketch_gram"),
     ):
         b_ms, b_by = bound_ms(*work[name])
         rows.append({
@@ -635,10 +1058,12 @@ def main() -> None:
             "plain_ms": ms[key][1],
             "bound_ms": b_ms,
             "bound_by": b_by,
-            "library_ms": None,  # no single PyTorch call computes any of the three
+            # K1, K2 and K3: no single PyTorch call computes what they compute
+            "library_ms": ms[key][2],
         })
     print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "
-          f"ms/batch")
+          f"ms/batch; M={M_LARGE} ms per sweep {ms['large_sweep']}; M={M_LARGE} train_model "
+          f"{large_batch_s * 1e3:.1f} ms/batch; {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,278 @@
+// The polar splits' streaming reductions over the columns of the two-site
+// matrix B (I, J), for Hopper (sm_90a): kernels K4a, K4b and K5.
+//
+// Replaces, in tensornetworkforml_tpu/ops/kernels/polar_split.py:
+//   K4a  _sketch_kernel (gramfree_split):  y0 = B Omega (I, q), n2 = |B|_F^2
+//   K4b  _gmul_kernel (gramfree_split):    z = B (B^T y1) (I, q)
+//   K5   _sketch_gram_kernel (polar_sketch_gram_pallas):
+//                                          y = B Omega, G = B B^T (I, I), n2
+// The Pallas kernels walk J in chunks on one core and carry the (I, q) and
+// (I, I) sums in VMEM from one grid step to the next. Here every output is cut
+// into 64 x 64 tiles whose k range (the J axis) is split over S blocks when
+// the tiles alone cannot fill the card; the S partial tiles are then added in
+// a fixed order by a second launch. There are no float atomics: two launches
+// agree bit for bit. Every product is a float32 FMA (tile_gemm.cuh); TF32 is
+// not used.
+//
+// What bounds them on this card: the operations. At M = 512 (I = 1024,
+// J = 10240, q = 512) K4a is 1.07e10 FLOP against 64 MB of traffic, K4b
+// 2.15e10 and K5 3.22e10 against at most 69 MB, so the float32 FMA rate and
+// how many SMs have work decide; B (42 MB) fits the 50 MB L2.
+//
+// Design:
+//   sketch_tile_kernel    one block per (output tile, k split). The y tiles of
+//                         output column-tile 0 also sum the squares of the B
+//                         elements they load, so n2 costs no second pass over
+//                         B. K5 adds the tiles of G's upper triangle and
+//                         writes each off-diagonal tile twice (G and its
+//                         mirror): 136 instead of 256 tiles at I = 1024.
+//   sketch_finish_kernel  adds the S partial tiles in split order, and the n2
+//                         partials in a fixed tree order.
+//   sketch_bt_kernel      K4b's first half, t = B^T y1 (J, q) with k = I; t
+//                         goes to scratch (21 MB at M = 512, mostly held in
+//                         L2), and the second half z = B t is
+//                         sketch_tile_kernel with t for Omega.
+// K4b is these launches together, counted as one kernel by its wrapper.
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "tile_gemm.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+constexpr int T = 64, TK = 16;
+using Smem = TileSmem<T, T, TK>;
+// Split the k range until about this many blocks have work (two per SM of an
+// H100), but give no block fewer than MIN_CHUNK columns of B. A fixed target,
+// not the card's SM count, so that the summation order and therefore the
+// result do not depend on the card.
+constexpr int TARGET_BLOCKS = 264;
+constexpr int MIN_CHUNK = 256;
+
+struct Args {
+  const float* b;    // (I, J)
+  const float* rhs;  // (J, q): Omega, or t for K4b
+  float* y;          // (I, q)
+  float* g;          // (I, I), or null: no Gram
+  float* n2;         // (1), or null: no norm
+  float* yp;         // S > 1: (S, I, q) partial tiles
+  float* gp;         // S > 1 and g: (S, I, I) partial tiles
+  float* n2p;        // (S, nI) partial norms
+  int I, J, q;
+  int nI, nQ;            // tile counts over I and q
+  int jobs_y, jobs_g;    // tiles of y, and of G's upper triangle
+  int S, kc;             // k splits and the columns of B each takes
+};
+
+int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
+
+// tile t of the upper triangle of an n x n tile grid, row by row: (it, jt), it <= jt
+__device__ __forceinline__ void tri_tile(int t, int n, int& it, int& jt) {
+  it = 0;
+  while (t >= n - it) {
+    t -= n - it;
+    ++it;
+  }
+  jt = it + t;
+}
+
+__global__ void __launch_bounds__(NT) sketch_tile_kernel(Args a) {
+  __shared__ Smem sm;
+  __shared__ float red[NT];
+  const int s = blockIdx.y, tid = threadIdx.x, ty = tid / (T / 4), tx = tid % (T / 4);
+  const int I = a.I, J = a.J, q = a.q;
+  const int k0 = s * a.kc, klen = min(a.kc, J - k0);
+  const float* b = a.b + k0;  // this split's columns of B
+  float acc[4][4];
+  int job = blockIdx.x;
+  if (job < a.jobs_y) {
+    const int it = job % a.nI, qt = job / a.nI;
+    const bool sq = a.n2 != nullptr && qt == 0;  // uniform over the block
+    const float* rhs = a.rhs + (size_t)k0 * q;
+    float ss = 0.f;
+    tile_gemm<T, T, TK, NT, true, false>(
+        sm, it * T, qt * T, klen,
+        [&](int m, int k) {
+          const float v = (m < I && k < klen) ? b[(size_t)m * J + k] : 0.f;
+          if (sq) ss = fmaf(v, v, ss);  // each element is loaded once per block
+          return v;
+        },
+        [=](int k, int n) { return (k < klen && n < q) ? rhs[(size_t)k * q + n] : 0.f; }, acc);
+    float* out = a.S > 1 ? a.yp + (size_t)s * I * q : a.y;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = it * T + ty * 4 + i, n = qt * T + tx * 4 + j;
+        if (m < I && n < q) out[(size_t)m * q + n] = acc[i][j];
+      }
+    if (sq) {
+      ss = block_sum<NT>(ss, red);
+      if (tid == 0) a.n2p[s * a.nI + it] = ss;
+    }
+    return;
+  }
+  job -= a.jobs_y;
+  int it, jt;
+  tri_tile(job, a.nI, it, jt);
+  tile_gemm<T, T, TK, NT, true, true>(
+      sm, it * T, jt * T, klen,
+      [=](int m, int k) { return (m < I && k < klen) ? b[(size_t)m * J + k] : 0.f; },
+      [=](int k, int n) { return (k < klen && n < I) ? b[(size_t)n * J + k] : 0.f; }, acc);
+  float* out = a.S > 1 ? a.gp + (size_t)s * I * I : a.g;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = it * T + ty * 4 + i, n = jt * T + tx * 4 + j;
+      if (m < I && n < I) {
+        out[(size_t)m * I + n] = acc[i][j];
+        if (it != jt) out[(size_t)n * I + m] = acc[i][j];
+      }
+    }
+}
+
+__global__ void __launch_bounds__(NT) sketch_finish_kernel(Args a) {
+  __shared__ float red[NT];
+  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (a.S > 1) {
+    const size_t Iq = (size_t)a.I * a.q, II = (size_t)a.I * a.I;
+    if (e < Iq) {
+      float v = 0.f;
+      for (int p = 0; p < a.S; ++p) v += a.yp[p * Iq + e];
+      a.y[e] = v;
+    }
+    if (a.g != nullptr && e < II) {
+      float v = 0.f;
+      for (int p = 0; p < a.S; ++p) v += a.gp[p * II + e];
+      a.g[e] = v;
+    }
+  }
+  if (a.n2 != nullptr && blockIdx.x == 0) {
+    float v = 0.f;
+    for (int p = threadIdx.x; p < a.S * a.nI; p += NT) v += a.n2p[p];
+    v = block_sum<NT>(v, red);
+    if (threadIdx.x == 0) *a.n2 = v;
+  }
+}
+
+// t = B^T y1: (J, q), k = I
+__global__ void __launch_bounds__(NT) sketch_bt_kernel(const float* __restrict__ b,
+                                                const float* __restrict__ y1, float* t, int I,
+                                                int J, int q, int nJ) {
+  __shared__ Smem sm;
+  const int jt = blockIdx.x % nJ, qt = blockIdx.x / nJ;
+  const int ty = threadIdx.x / (T / 4), tx = threadIdx.x % (T / 4);
+  float acc[4][4];
+  tile_gemm<T, T, TK, NT, false, false>(
+      sm, jt * T, qt * T, I,
+      [=](int m, int k) { return (m < J && k < I) ? b[(size_t)k * J + m] : 0.f; },
+      [=](int k, int n) { return (k < I && n < q) ? y1[(size_t)k * q + n] : 0.f; }, acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = jt * T + ty * 4 + i, n = qt * T + tx * 4 + j;
+      if (m < J && n < q) t[(size_t)m * q + n] = acc[i][j];
+    }
+}
+
+void plan(Args& a, int I, int J, int q, bool gram) {
+  a.I = I;
+  a.J = J;
+  a.q = q;
+  a.nI = cdiv(I, T);
+  a.nQ = cdiv(q, T);
+  a.jobs_y = a.nI * a.nQ;
+  a.jobs_g = gram ? a.nI * (a.nI + 1) / 2 : 0;
+  const int tiles = a.jobs_y + a.jobs_g;
+  const int S = std::max(1, std::min(cdiv(TARGET_BLOCKS, tiles), cdiv(J, MIN_CHUNK)));
+  a.kc = cdiv(cdiv(J, S), TK) * TK;
+  a.S = cdiv(J, a.kc);
+}
+
+long partial_floats(const Args& a) {
+  long n = (long)a.S * a.nI;
+  if (a.S > 1) n += (long)a.S * a.I * a.q + (a.jobs_g ? (long)a.S * a.I * a.I : 0L);
+  return n;
+}
+
+int launch_sketch(Args& a, float* scratch, cudaStream_t stream) {
+  a.n2p = scratch;
+  a.yp = a.n2p + (size_t)a.S * a.nI;
+  a.gp = a.yp + (a.S > 1 ? (size_t)a.S * a.I * a.q : 0);
+  sketch_tile_kernel<<<dim3(a.jobs_y + a.jobs_g, a.S), NT, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (a.S == 1 && a.n2 == nullptr) return 0;
+  const long n_out = std::max((long)a.I * a.q, a.g != nullptr ? (long)a.I * a.I : 0L);
+  sketch_finish_kernel<<<a.S > 1 ? cdiv(n_out, NT) : 1, NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// scratch of K4a (gram = 0) or K5 (gram = 1), in floats
+long tnml_sketch_scratch_floats(int I, int J, int q, int gram) {
+  Args a{};
+  plan(a, I, J, q, gram != 0);
+  return partial_floats(a);
+}
+
+// scratch of K4b, in floats: t (J, q) and the partials of z = B t
+long tnml_gmul_scratch_floats(int I, int J, int q) {
+  Args a{};
+  plan(a, I, J, q, false);
+  return (long)J * q + partial_floats(a);
+}
+
+// K4a: y0 = B Omega, n2 = |B|_F^2
+int tnml_gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch,
+                         int I, int J, int q, void* stream) {
+  Args a{};
+  plan(a, I, J, q, false);
+  a.b = b;
+  a.rhs = om;
+  a.y = y0;
+  a.n2 = n2;
+  return launch_sketch(a, scratch, (cudaStream_t)stream);
+}
+
+// K5: y = B Omega, G = B B^T, n2 = |B|_F^2
+int tnml_sketch_gram(const float* b, const float* om, float* y, float* g, float* n2,
+                     float* scratch, int I, int J, int q, void* stream) {
+  Args a{};
+  plan(a, I, J, q, true);
+  a.b = b;
+  a.rhs = om;
+  a.y = y;
+  a.g = g;
+  a.n2 = n2;
+  return launch_sketch(a, scratch, (cudaStream_t)stream);
+}
+
+// K4b: z = B (B^T y1)
+int tnml_gramfree_gmul(const float* b, const float* y1, float* z, float* scratch, int I, int J,
+                       int q, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nJ = cdiv(J, T);
+  float* t = scratch;
+  sketch_bt_kernel<<<nJ * cdiv(q, T), NT, 0, st>>>(b, y1, t, I, J, q, nJ);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Args a{};
+  plan(a, I, J, q, false);
+  a.b = b;
+  a.rhs = t;
+  a.y = z;
+  return launch_sketch(a, scratch + (size_t)J * q, st);
+}
+
+const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

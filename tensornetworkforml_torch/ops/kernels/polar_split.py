@@ -1,9 +1,9 @@
-"""The polar Newton-Schulz split and its subspace-iteration kernel (K1).
+"""The polar Newton-Schulz splits and their kernels (K1, K4a, K4b, K5).
 
-``hybrid_polar_split`` is the canonical split of ``svd_method="polar"``:
-plain matrix products for the sketch ``Y0 = B Omega``, the Gram
-``G = B B^T`` and ``R = Q^T B``, and one kernel, ``polar_iterate``, for the
-serial subspace iteration in between:
+``hybrid_polar_split`` is the canonical split of ``svd_method="polar"`` up
+to I = 768 rows: plain matrix products for the sketch ``Y0 = B Omega``, the
+Gram ``G = B B^T`` and ``R = Q^T B``, and one kernel, ``polar_iterate``, for
+the serial subspace iteration in between:
 
     G <- G / n2                 (n2 = |B|_F^2, read off tr G when not given)
     repeat n_power:  y = G @ polar_ns(colnorm(y), loop schedule)
@@ -19,6 +19,15 @@ On a CUDA tensor ``polar_iterate`` launches the hand-written kernel
 ``csrc/polar_iterate.cu`` (the counterpart of the JAX package's Pallas
 kernel ``polar_iterate_pallas``); on a CPU tensor it runs the plain version
 ``polar_iterate_reference``.
+
+``gramfree_split`` is the split above I = 768: no ``(I, I)`` Gram, since
+``G y = B (B^T y)``. Two streaming reductions over B's columns,
+``gramfree_sketch`` (K4a: ``y0 = B Omega`` and ``n2``) and ``gramfree_gmul``
+(K4b: ``z = B (B^T y1)``), with the polar orthonormalisations (or CholQR2)
+as plain products in between. ``polar_split_two_stage`` is the split as
+``polar_sketch_gram`` (K5: ``y``, ``G`` and ``n2`` in one pass over B)
+followed by K1. The three reductions are ``csrc/polar_sketch.cu`` on a card
+and their ``*_reference`` plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +46,14 @@ from tensornetworkforml_torch.ops.kernels import _build
 # G-multiplied iterate, whose spectrum is squared, down to l0 = 1e-7.
 _PE_LOOP = (1e-3, 0.25)
 _PE_FINAL = (1e-7, 1e-7)
+# the gram-free split's final schedule: at q = 512 the row-sum prescale
+# overestimates sigma_max by up to sqrt(q) ~ 23, so the deepest kept
+# directions of the squared spectrum start near 4e-8
+_PE_FINAL_GRAMFREE = (1e-8, 1e-7)
 _MAX_PASSES = 64  # coefficient slots of the kernel's parameter block
+# the split methods' products all run in full float32 here; TF32 and 3xTF32
+# are an open numerics decision
+_FULL_F32 = ("default", "highest")
 
 
 def _minimax_quintic(lo: float, hi: float):
@@ -238,6 +254,15 @@ def polar_iterate(
 polar_iterate.launches = 0
 
 
+def _canonical_factors(q: torch.Tensor, rank: int, b32: torch.Tensor, out_dtype):
+    """``(Q, R = Q^T B)`` in ``out_dtype``, with ``Q (I, q_cols)`` padded by
+    zero columns to ``rank`` when the split had fewer rows than ``rank``."""
+    if q.shape[1] < rank:
+        q = torch.cat([q, q.new_zeros((q.shape[0], rank - q.shape[1]))], dim=1)
+    r = q.T @ b32
+    return q.to(out_dtype), r.to(out_dtype)
+
+
 def hybrid_polar_split(bmat: torch.Tensor, rank: int):
     """Canonical split ``bmat (I, J) -> (Q (I, rank) isometric, R = Q^T B)``.
 
@@ -255,7 +280,253 @@ def hybrid_polar_split(bmat: torch.Tensor, rank: int):
     y0 = b32 @ om
     g = b32 @ b32.T
     q = polar_iterate(y0, g, dead_tol=dead_tol)
-    if q_cols < rank:
-        q = torch.cat([q, q.new_zeros((I, rank - q_cols))], dim=1)
-    r = q.T @ b32
-    return q.to(out_dtype), r.to(out_dtype)
+    return _canonical_factors(q, rank, b32, out_dtype)
+
+
+# ---- the J-streaming reductions: K4a, K4b and K5 ----------------------------
+
+def gramfree_sketch_reference(bmat: torch.Tensor, om: torch.Tensor):
+    """Plain version of K4a: ``bmat (I, J)``, ``om (J, q)`` -> ``(y0 = B om
+    (I, q), n2 = |B|_F^2 (1, 1))``; any dtype and device."""
+    return bmat @ om, (bmat * bmat).sum().reshape(1, 1)
+
+
+def gramfree_gmul_reference(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4b: ``z = B (B^T y1)``, ``(I, q)``."""
+    return bmat @ (bmat.T @ y1)
+
+
+def polar_sketch_gram_reference(bmat: torch.Tensor, om: torch.Tensor):
+    """Plain version of K5: ``(y = B om (I, q), G = B B^T (I, I), n2 = |B|_F^2
+    (1, 1))``."""
+    return bmat @ om, bmat @ bmat.T, (bmat * bmat).sum().reshape(1, 1)
+
+
+def _sketch_lib() -> ctypes.CDLL:
+    lib = _build.load("polar_sketch")
+    if lib.tnml_gramfree_sketch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # pointers (inputs, outputs, scratch), then I, J, q, then the stream
+        lib.tnml_gramfree_sketch.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.tnml_sketch_gram.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.tnml_gramfree_gmul.argtypes = [p, p, p, p, i, i, i, p]
+        for fn in (lib.tnml_gramfree_sketch, lib.tnml_sketch_gram, lib.tnml_gramfree_gmul):
+            fn.restype = ctypes.c_int
+        lib.tnml_sketch_scratch_floats.argtypes = [i, i, i, i]
+        lib.tnml_sketch_scratch_floats.restype = ctypes.c_long
+        lib.tnml_gmul_scratch_floats.argtypes = [i, i, i]
+        lib.tnml_gmul_scratch_floats.restype = ctypes.c_long
+        lib.tnml_cuda_error_string.argtypes = [i]
+        lib.tnml_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _on_card(name: str, bmat: torch.Tensor, other: torch.Tensor, rows: int) -> bool:
+    """False for CPU tensors (the caller runs the plain version); True for
+    what the kernel takes: CUDA float32, contiguous, ``bmat (I, J)`` and
+    ``other (rows, q)``, none of I, J and q zero. Raises on anything else."""
+    if bmat.device.type == "cpu" and other.device.type == "cpu":
+        return False
+    if bmat.device.type != "cuda" or other.device != bmat.device:
+        raise ValueError(
+            f"{name} takes CPU tensors or CUDA tensors on one device, got "
+            f"{bmat.device}, {other.device}"
+        )
+    if bmat.dtype != torch.float32 or other.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32, got {bmat.dtype}, {other.dtype}")
+    if bmat.dim() != 2 or other.dim() != 2 or other.shape[0] != bmat.shape[rows]:
+        raise ValueError(
+            f"{name}: bmat must be (I, J) and its partner ({'IJ'[rows]}, q), got "
+            f"{tuple(bmat.shape)}, {tuple(other.shape)}"
+        )
+    if 0 in bmat.shape or other.shape[1] == 0:
+        raise ValueError(f"{name}: the kernel takes no empty dimension, got "
+                         f"{tuple(bmat.shape)}, {tuple(other.shape)}")
+    if not (bmat.is_contiguous() and other.is_contiguous()):
+        raise ValueError(f"{name}: the inputs must be contiguous")
+    return True
+
+
+def _run(name: str, bmat: torch.Tensor, launch) -> None:
+    lib = _sketch_lib()
+    with torch.cuda.device(bmat.device):
+        err = launch(lib, torch.cuda.current_stream(bmat.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel failed: cudaError {err} ({lib.tnml_cuda_error_string(err).decode()})"
+        )
+
+
+def _scratch(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty((n,), dtype=torch.float32, device=like.device)
+
+
+def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
+    """K4a: ``y0 = B om (I, q)`` and ``n2 = |B|_F^2 (1, 1)`` in one pass over
+    ``bmat (I, J)``.
+
+    CPU tensors run ``gramfree_sketch_reference``. CUDA tensors must be
+    float32 and contiguous and launch the kernel; each launch adds one to
+    ``gramfree_sketch.launches``.
+    """
+    if not _on_card("gramfree_sketch", bmat, om, 1):
+        return gramfree_sketch_reference(bmat, om)
+    (I, J), q = bmat.shape, om.shape[1]
+    y0 = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
+    n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
+    lib = _sketch_lib()
+    scratch = _scratch(lib.tnml_sketch_scratch_floats(I, J, q, 0), bmat)
+    _run("gramfree_sketch", bmat, lambda lib, stream: lib.tnml_gramfree_sketch(
+        bmat.data_ptr(), om.data_ptr(), y0.data_ptr(), n2.data_ptr(), scratch.data_ptr(),
+        I, J, q, stream))
+    gramfree_sketch.launches += 1
+    return y0, n2
+
+
+def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
+    """K4b: ``z = B (B^T y1)``, ``(I, q)``, with no ``(I, I)`` Gram.
+
+    CPU tensors run ``gramfree_gmul_reference``. CUDA tensors must be float32
+    and contiguous and launch the kernel (two launches: ``t = B^T y1``, then
+    ``z = B t``); each call adds one to ``gramfree_gmul.launches``.
+    """
+    if not _on_card("gramfree_gmul", bmat, y1, 0):
+        return gramfree_gmul_reference(bmat, y1)
+    (I, J), q = bmat.shape, y1.shape[1]
+    z = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
+    lib = _sketch_lib()
+    scratch = _scratch(lib.tnml_gmul_scratch_floats(I, J, q), bmat)
+    _run("gramfree_gmul", bmat, lambda lib, stream: lib.tnml_gramfree_gmul(
+        bmat.data_ptr(), y1.data_ptr(), z.data_ptr(), scratch.data_ptr(), I, J, q, stream))
+    gramfree_gmul.launches += 1
+    return z
+
+
+def polar_sketch_gram(bmat: torch.Tensor, om: torch.Tensor):
+    """K5: ``y = B om (I, q)``, ``G = B B^T (I, I)`` and ``n2 = |B|_F^2
+    (1, 1)`` in one pass over ``bmat (I, J)``.
+
+    CPU tensors run ``polar_sketch_gram_reference``. CUDA tensors must be
+    float32 and contiguous and launch the kernel; each launch adds one to
+    ``polar_sketch_gram.launches``.
+    """
+    if not _on_card("polar_sketch_gram", bmat, om, 1):
+        return polar_sketch_gram_reference(bmat, om)
+    (I, J), q = bmat.shape, om.shape[1]
+    y = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
+    g = torch.empty((I, I), dtype=torch.float32, device=bmat.device)
+    n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
+    lib = _sketch_lib()
+    scratch = _scratch(lib.tnml_sketch_scratch_floats(I, J, q, 1), bmat)
+    _run("polar_sketch_gram", bmat, lambda lib, stream: lib.tnml_sketch_gram(
+        bmat.data_ptr(), om.data_ptr(), y.data_ptr(), g.data_ptr(), n2.data_ptr(),
+        scratch.data_ptr(), I, J, q, stream))
+    polar_sketch_gram.launches += 1
+    return y, g, n2
+
+
+gramfree_sketch.launches = 0
+gramfree_gmul.launches = 0
+polar_sketch_gram.launches = 0
+
+
+# ---- the large-bond splits -----------------------------------------------------
+
+def _full_f32(name: str, value: str) -> None:
+    if value in _FULL_F32:
+        return
+    if value == "high":
+        raise NotImplementedError(
+            f"{name}='high' (3-pass bf16 products on the TPU) is not ported: whether "
+            "TF32 or 3xTF32 may stand in for it on the card is an open numerics "
+            "decision (ROADMAP queue 1 item 9); 'default' and 'highest' both mean "
+            "full float32 here"
+        )
+    raise ValueError(f"unknown {name} {value!r}; expected one of {_FULL_F32} or 'high'")
+
+
+def _polish(q: torch.Tensor) -> torch.Tensor:
+    """One CholQR pass at a 1e-6 floor ridge: ``Q^T Q = I + O(eps)`` here, so
+    the ridge only keeps exactly-dead columns factorable."""
+    eye = torch.eye(q.shape[1], dtype=q.dtype, device=q.device)
+    c, _ = torch.linalg.cholesky_ex(q.T @ q + 1e-6 * eye)
+    return torch.linalg.solve_triangular(c.mT, q, upper=True, left=False)
+
+
+def gramfree_split(
+    bmat: torch.Tensor,
+    rank: int,
+    precision: str = "default",
+    orth: str = "ns",
+    ns_prec: str = "highest",
+):
+    """Large-bond canonical split ``bmat (I, J) -> (Q (I, rank) isometric,
+    R = Q^T B)`` with no ``(I, I)`` Gram: ``G y = B (B^T y)``.
+
+        y0, n2 = B Omega, |B|_F^2                      (K4a)
+        y1 = orth_first(y0 / sqrt(n2))
+        z  = B (B^T y1)                                (K4b)
+        Q  = orth_final(z / n2)                         (n2: overflow safety)
+
+    ``orth="ns"`` orthonormalises by polar Newton-Schulz: ``colnorm`` then the
+    loop schedule, and ``colnorm`` then the ``(1e-8, 1e-7)`` final schedule.
+    ``orth="cholqr"`` uses CholQR2 with the q-scaled ridge and a 1e-6 polish
+    for both. The orthonormalisations and ``R`` are plain float32 products.
+    ``precision`` and ``ns_prec`` take "default" or "highest", which both mean
+    full float32 here; "high" raises. ``dead_tol`` is 1e-6 and the split runs
+    in float32 whatever the input dtype, as in the JAX package.
+    """
+    _full_f32("precision", precision)
+    _full_f32("ns_prec", ns_prec)
+    I, J = bmat.shape
+    q_cols = min(rank, I)
+    dead_tol = 1e-6
+    if orth == "ns":
+        loop_s, final_s = _pe_schedule(*_PE_LOOP), _pe_schedule(*_PE_FINAL_GRAMFREE)
+
+        def orth_first(y):
+            return _polar_ns_greedy(_colnorm(y, dead_tol), loop_s)
+
+        def orth_final(z):
+            return _polar_ns_greedy(_colnorm(z, dead_tol), final_s)
+
+    elif orth == "cholqr":
+        eps = _svd._cholqr_eps(torch.float32, q_cols)
+
+        def orth_first(y):
+            return _polish(_svd._cholqr_subspace(None, y[None], eps, 0)[0])
+
+        orth_final = orth_first
+    else:
+        raise ValueError(f"unknown orth {orth!r}")
+    out_dtype = bmat.dtype
+    b32 = bmat.to(torch.float32).contiguous()
+    om = _svd.rangefinder_omega(J, q_cols, torch.float32, bmat.device).contiguous()
+    y0, n2 = gramfree_sketch(b32, om)
+    n2 = torch.clamp(n2.reshape(()), min=1e-30)
+    y1 = orth_first(y0 / torch.sqrt(n2))
+    q = orth_final(gramfree_gmul(b32, y1.contiguous()) / n2)
+    return _canonical_factors(q, rank, b32, out_dtype)
+
+
+def polar_split_two_stage(
+    bmat: torch.Tensor,
+    rank: int,
+    n_power: int = 1,
+    loop_coeffs: tuple = None,
+    final_coeffs: tuple = None,
+):
+    """Canonical split as two kernels: ``polar_sketch_gram`` (K5) for the
+    sketch, the Gram and ``n2``, then ``polar_iterate`` (K1) with that ``n2``;
+    ``R = Q^T B`` is a plain float32 product. The contract of
+    ``hybrid_polar_split``; ``dead_tol`` follows the input dtype.
+    """
+    I, J = bmat.shape
+    q_cols = min(rank, I)
+    out_dtype = bmat.dtype
+    dead_tol = 1e-6 if bmat.dtype != torch.float64 else 1e-12
+    b32 = bmat.to(torch.float32).contiguous()
+    om = _svd.rangefinder_omega(J, q_cols, torch.float32, bmat.device).contiguous()
+    y, g, n2 = polar_sketch_gram(b32, om)
+    q = polar_iterate(y, g, n2, n_power, loop_coeffs, final_coeffs, dead_tol)
+    return _canonical_factors(q, rank, b32, out_dtype)

@@ -6,10 +6,12 @@ The counterpart of the JAX package's ``ops/svd.py``. Methods ported here:
     adaptive energy mask; ``"shared"`` or ``"canonical"`` gauge.
   * ``"cholqr"`` -- the matmul/Cholesky-only subspace split
     (``batched_cholqr_split``), canonical gauge only.
-  * ``"polar"``  -- the polar Newton-Schulz split
-    (``ops/kernels/polar_split.py::hybrid_polar_split``), canonical gauge
-    only; its subspace iteration runs in the hand-written kernel K1 on a
-    CUDA tensor.
+  * ``"polar"``  -- the polar Newton-Schulz split, canonical gauge only.
+    Up to I = 768 rows it is ``ops/kernels/polar_split.py::
+    hybrid_polar_split``, whose subspace iteration is the kernel K1 on a
+    CUDA tensor; above, ``gramfree_split``, whose two streaming reductions
+    over B are the kernels K4a and K4b. The choice goes by shape alone, on
+    every device, as the JAX package's goes on its chip.
 
 ``gram``, ``cholsvd``, ``rangefinder`` and ``rangefinder_pallas`` are not
 ported yet and raise ``NotImplementedError``.
@@ -22,6 +24,9 @@ import functools
 import torch
 
 _OMEGA_SEED = 0x52464E44  # the seed of the JAX package's fixed sketch matrix
+# rows above which the polar split goes gram-free (the JAX package's
+# threshold, kept so that both compute the same split at every I)
+_GRAMFREE_MIN_I = 768
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,9 +100,13 @@ def truncated_svd_split(
             raise ValueError("polar split requires split_mode='canonical'")
         if keep is not None:
             raise ValueError("polar split does not support rank_mode='reference'")
-        from tensornetworkforml_torch.ops.kernels.polar_split import hybrid_polar_split
+        from tensornetworkforml_torch.ops.kernels import polar_split
 
-        return hybrid_polar_split(bmat, rank)
+        # by shape alone, on every device: what the JAX package computes on
+        # its chip (its CPU fallback runs the hybrid split at every I)
+        if bmat.shape[0] > _GRAMFREE_MIN_I:
+            return polar_split.gramfree_split(bmat, rank)
+        return polar_split.hybrid_polar_split(bmat, rank)
     if method in ("gram", "cholsvd", "rangefinder", "rangefinder_pallas"):
         raise _not_ported(method)
     raise ValueError(f"unknown SVD method {method!r}")

@@ -5,6 +5,10 @@ from tensornetworkforml_torch.train.sweep import (
     two_site_update,
 )
 from tensornetworkforml_torch.train.epoch import fused_epoch
+from tensornetworkforml_torch.train.factored_step import (
+    factored_supported,
+    two_site_update_factored,
+)
 from tensornetworkforml_torch.train.trainer import (
     Trainer,
     evaluate_accuracy,
@@ -18,6 +22,8 @@ __all__ = [
     "train_batch",
     "two_site_update",
     "fused_epoch",
+    "factored_supported",
+    "two_site_update_factored",
     "Trainer",
     "evaluate_accuracy",
     "stall_detected",

@@ -20,14 +20,20 @@ swapped), made contiguous before it reaches a kernel.
 
 Engines: ``"xla"`` (the name is kept from the JAX package) runs each step as
 plain tensor operations plus the configured split -- with
-``svd_method="polar"`` the split's subspace iteration is kernel K1;
-``"hybrid"`` runs kernel K2 (``two_site_presplit``) and then K1 on every
-step. ``engine="fused"`` (K7), ``dist_split`` and the factored large-bond
-update are not ported yet and raise ``NotImplementedError``.
+``svd_method="polar"`` the split's subspace iteration is kernel K1 up to
+I = M*D = 768 rows, and above it the split is gram-free with kernels K4a and
+K4b; ``"hybrid"`` runs kernel K2 (``two_site_presplit``) and then K1 on every
+step. The factored large-bond update (``train/factored_step.py``) takes a
+step of the xla engine where the JAX package's rule sends it there
+(``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for a canonical
+fixed-rank polar split with no L2); it runs no kernel. ``engine="fused"``
+(K7) and ``dist_split`` are not ported yet and raise
+``NotImplementedError``.
 
 ``matmul_precision``: every product of the port runs in full float32 (TF32
 stays off), which is what ``"default"``, ``"float32"`` and ``"highest"``
-mean here; reduced-precision modes are a numerics decision not taken yet.
+mean here; reduced-precision modes are a numerics decision not taken yet
+(ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels.polar_split import polar_iterate
 from tensornetworkforml_torch.ops.kernels.presplit_kernel import two_site_presplit
 from tensornetworkforml_torch.ops.svd import truncated_svd_split
+from tensornetworkforml_torch.train.factored_step import (
+    factored_supported,
+    two_site_update_factored,
+)
 
 _FULL_F32 = ("default", "float32", "highest")
 
@@ -90,14 +100,10 @@ def _mirror_label(label_site: torch.Tensor) -> torch.Tensor:
 
 
 def _factored_route(cfg: SweepConfig, M: int, D: int) -> bool:
-    """Whether the JAX package would take ``train/factored_step.py`` here."""
-    supported = (
-        not cfg.L2_flag
-        and cfg.split_mode == "canonical"
-        and cfg.svd_method == "polar"
-        and cfg.rank_mode == "fixed"
-        and cfg.dist_split == "none"
-    )
+    """Whether this step takes ``train/factored_step.py``: the JAX package's
+    rule (``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for the
+    configurations it supports)."""
+    supported = factored_supported(cfg, M, D)
     if cfg.factored_update == "on" and not supported:
         raise ValueError(
             "factored_update='on' requires split_mode='canonical', "
@@ -127,13 +133,10 @@ def two_site_update(
     B = x1.shape[0]
     dtype, dev = label_site.dtype, label_site.device
     if _factored_route(cfg, M, D):
-        raise NotImplementedError(
-            "this configuration takes the factored large-bond update "
-            "(train/factored_step.py: factored_update='on', or 'auto' with a "
-            "canonical polar fixed-rank split, no L2 and M*D > 512), which is "
-            "not ported yet (ROADMAP queue 1 item 9); pass "
-            "factored_update='off' to materialise the two-site tensor"
+        A_left, label_new, l_env_new, f_new, metrics = two_site_update_factored(
+            label_site, A2, x1, x2, l_env, r_env, y_onehot, f, lr, weight_dec, T, cfg,
         )
+        return A_left, label_new, l_env_new, E2, f_new, metrics
     if cfg.dist_split != "none":
         raise NotImplementedError(
             "dist_split (bond-distributed splits) is not ported yet "
@@ -338,7 +341,7 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
         raise NotImplementedError(
             f"matmul_precision={cfg.matmul_precision!r}: the port runs every "
             f"product in full float32 ({', '.join(_FULL_F32)}); reduced "
-            "precision is not ported"
+            "precision (TF32 or 3xTF32) is an open decision (ROADMAP queue 1 item 9)"
         )
     if cfg.engine == "fused":
         raise NotImplementedError(

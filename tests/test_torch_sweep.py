@@ -273,7 +273,7 @@ def test_step_metrics_off_gives_zeros():
 @pytest.mark.parametrize("kw,match", [
     (dict(engine="fused"), "K7"),
     (dict(dist_split="cholqr"), "queue 1 item 11"),
-    (dict(factored_update="on"), "queue 1 item 9"),
+    (dict(svd_method="rangefinder"), "K6"),
     (dict(matmul_precision="tensorfloat32"), "full float32"),
     (dict(svd_method="gram", split_mode="shared"), "queue 1 item 3"),
 ])
