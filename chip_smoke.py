@@ -28,22 +28,37 @@ phase trains the same model at M=512. Phases:
                 the xla-engine polar sweep;
   7. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
                 two-site matrix, held against hybrid_polar_split;
-  8. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
+  8. rangefinder -- the flagship with svd_method="rangefinder" (bench.py's
+                high_m_rangefinder): K6 against its plain version on the
+                captured step's two-site matrix, a ragged shape, a shape whose
+                panel does not fit in shared memory and an edge step;
+                train_model on 2 batches from prepare_dataset (K6 2 x 195
+                launches); one sweep held by quality against the same
+                sweep with the plain version, whose 195 splits are each
+                also run through K6 and held against it, with the exact-SVD
+                and polar sweeps printed beside it;
+                product_init(canonicalize=True) and canonicalize on the card;
+                one call of each small-I split (gram, cholsvd, rangefinder,
+                svd) against a float64 exact split;
+  9. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
                 against their plain versions on the two-site matrix of a
                 mid-chain step and at a ragged shape; train_model on 2
                 batches through the factored route (no kernel launches); one
                 sweep with factored_update="off", whose gram-free split runs
                 K4a and K4b 195 times each, held against the same sweep with
                 the plain versions and, by quality, against the factored one;
-  9. timing  -- each kernel vs its plain version with CUDA events (plain,
+ 10. timing  -- each kernel vs its plain version with CUDA events (plain,
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
-                yardstick call), ms per sweep on both engines and on both
-                M=512 routes, the device time of a profiled sweep of each
-                (and the host time of the M=512 ones), Predictor samples/s.
+                yardstick call), ms per sweep on both engines, on the
+                rangefinder split and on both M=512 routes, the device time
+                of a profiled sweep of each (and the host time of the M=512
+                ones), Predictor samples/s, and torch.linalg.qr on K6's
+                panel for context.
 
 Launch counts are set to 0 just before each path (serve, train, hybrid,
-two-stage, the M=512 training and the M=512 gram-free sweep) and read just
-after it; the comparisons with plain versions happen outside those windows.
+two-stage, the rangefinder train_model, the M=512 training and the M=512
+gram-free sweep) and read just after it; the comparisons with plain versions
+happen outside those windows.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing either, and any failed check exits
@@ -64,13 +79,20 @@ from unittest import mock
 import numpy as np
 import torch
 
-from tensornetworkforml_torch.data.loader import ArrayLoader, NumpyDataset
+from tensornetworkforml_torch.data.loader import ArrayLoader, NumpyDataset, prepare_dataset
 from tensornetworkforml_torch.data.mnist import max_pool_2x2, synthetic_mnist
+from tensornetworkforml_torch.models.canonical import canonicalize
 from tensornetworkforml_torch.models.mps import mps_forward, product_init
 from tensornetworkforml_torch.models.serving import Predictor
 from tensornetworkforml_torch.ops import svd as svd_mod
 from tensornetworkforml_torch.ops.embedding import psi_embed
-from tensornetworkforml_torch.ops.kernels import _build, env_scan, polar_split, presplit_kernel
+from tensornetworkforml_torch.ops.kernels import (
+    _build,
+    env_scan,
+    polar_split,
+    presplit_kernel,
+    split_kernel,
+)
 from tensornetworkforml_torch.train import epoch as epoch_mod
 from tensornetworkforml_torch.train import sweep as sweep_mod
 from tensornetworkforml_torch.train.sweep import SweepConfig, one_hot_labels, sweep_once
@@ -125,6 +147,46 @@ M_LARGE, LARGE_BATCHES = 512, 2
 # smaller bonds showed on the CPU, which grew with M; and their accuracies
 # on fresh requests within 0.05 (13 of 256).
 QUALITY_F_TOL, QUALITY_ACC_TOL = 0.25, 0.05
+# The rangefinder phase: bench.py's high_m_rangefinder, the flagship with
+# svd_method="rangefinder", which runs K6 on every step (I = M*D = 256).
+RF_BATCHES = 2
+# K6 vs plain: K1's limits (K1_*), for the same reasons: seven Householder
+# orthonormalisations and six products with G sum in another order. The raw
+# Q is not held: past B's rank its columns come from rounding (or are unit
+# vectors e_j where the iterate is exactly dead), so only the projector of
+# the live block (the columns whose row of R is above LIVE_TOL of the largest
+# in the plain version), Q R and the isometry of Q are. The iteration runs on
+# G = bs bs^T, which squares the spectrum: float32 rounding of ~1e-7 of
+# sigma_max^2 moves a direction at 1e-2 of sigma_max by ~1e-3, K1_PROJ_TOL,
+# and a weaker one by more (the sweep's last step, where B has rank 20,
+# holds such directions), so a live column carries at least 1e-2 of the
+# largest row's weight.
+LIVE_TOL = 1e-2
+# The rangefinder sweep amplifies rounding: near the right chain end B's
+# rank falls far below M, the kept columns past it are directions formed
+# from rounding, and the next steps' gradients put weight along them. So two
+# float32 runs of the sweep part by far more than SWEEP_TOL (the script
+# prints the kernel sweep against itself on the model rescaled by
+# 1 + RF_PERTURB), and the kernel is held step by step instead: each of the
+# plain-version sweep's 195 splits is also run through K6 on the same input.
+# The two sweeps are held by quality (QUALITY_ACC_TOL), and the K6 sweep must
+# train: from product_init about 0.18 of the fresh requests are right, and
+# one sweep lifts that above 0.8 (the hybrid epoch's second batch, PR 2), so
+# RF_MIN_ACC is a floor far from both. The exact-SVD and polar sweeps are
+# printed beside it, not held: they are other algorithms (the polar split
+# zeroes dead columns; the rangefinder and the exact SVD keep them), and the
+# rangefinder sweep's rounding alone moves its accuracy by a few hundredths.
+RF_PERTURB = 3e-7
+RF_MIN_ACC = 0.5
+# The canonical gauge on the card: isometries (A A^T a projector), the
+# calibrated max|f| and the function kept by canonicalize, each to 1e-4
+# (float32 QRs and a 196-site forward; ~1e-6 expected).
+CANON_TOL = 1e-4
+# gram, cholsvd, rangefinder (I < 128) and svd on a (64, 640) float32 matrix
+# whose kept spectrum spans a decade and drops 20x at the cut, Q R against a
+# float64 exact split, relative to max|B|: ~2e-6 on the CPU; cuSOLVER's
+# float32 eigh and SVD round differently, so 1e-4.
+SMALL_SPLIT_TOL = 1e-4
 DEVICE = "cuda"
 # peak rates of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
@@ -164,6 +226,7 @@ KERNELS = {  # source name -> the function that builds and binds it
     "polar_iterate": polar_split._lib,
     "presplit": presplit_kernel._lib,
     "polar_sketch": polar_split._sketch_lib,
+    "rangefinder_split": split_kernel._lib,
 }
 
 
@@ -326,6 +389,7 @@ WRAPPERS = {
     "gramfree_sketch": polar_split.gramfree_sketch,
     "gramfree_gmul": polar_split.gramfree_gmul,
     "polar_sketch_gram": polar_split.polar_sketch_gram,
+    "rangefinder_split": split_kernel.rangefinder_split,
 }
 
 
@@ -505,7 +569,250 @@ def phase_two_stage(captured) -> dict:
     return launched
 
 
-# ---- phase 8: the large-bond path (M=512) -------------------------------------
+# ---- phase 8: the rangefinder path (K6) -----------------------------------------
+
+def rf_cfg() -> SweepConfig:
+    return flagship_cfg("xla")._replace(svd_method="rangefinder")
+
+
+def gapped(I: int, J: int, rank: int, gen) -> torch.Tensor:
+    """A float64 matrix whose spectrum spans a decade over ``rank`` values and
+    then drops 20x, the structure of a two-site matrix in canonical training."""
+    u = torch.linalg.qr(torch.randn((I, I), generator=gen, dtype=torch.float64))[0]
+    v = torch.linalg.qr(torch.randn((J, I), generator=gen, dtype=torch.float64))[0]
+    s = torch.cat([torch.logspace(0, -1, rank, dtype=torch.float64),
+                   torch.logspace(-2.3, -3.3, I - rank, dtype=torch.float64)])
+    return (u * s) @ v.T
+
+
+def k6_agreement(bmat, q, r, qp, rp):
+    """K6's ``(q, r)`` against the plain version's ``(qp, rp)`` on ``bmat``:
+    the projector of the live block, |Q R - Q' R'| / max|B|, the isometry of
+    Q, and the number of live columns."""
+    q64, p64, b64 = q.double(), qp.double(), bmat.double()
+    bmax = max(float(b64.abs().max()), 1e-30)
+    rows = torch.linalg.vector_norm(rp.double(), dim=1)
+    live = rows > LIVE_TOL * rows.max()
+    ql, pl = q64[:, live], p64[:, live]
+    proj = float((ql @ ql.T - pl @ pl.T).abs().max()) if bool(live.any()) else 0.0
+    rec = float((q64 @ r.double() - p64 @ rp.double()).abs().max()) / bmax
+    eye = torch.eye(q.shape[1], dtype=torch.float64, device=q.device)
+    iso = float((q64.T @ q64 - eye).abs().max())
+    return proj, rec, iso, int(live.sum())
+
+
+def k6_within(proj, rec, iso) -> bool:
+    return proj <= K1_PROJ_TOL and rec <= K1_REC_TOL and iso <= K1_ISO_TOL
+
+
+def compare_rangefinder(name, bmat, rank) -> float:
+    """K6 vs its plain version on the card; returns the largest of |Q - Q'|
+    and |R - R'|."""
+    q, r = split_kernel.rangefinder_split(bmat, rank)
+    torch.cuda.synchronize()
+    qp, rp = split_kernel.rangefinder_split_plain(bmat, rank)
+    if q.shape != qp.shape or r.shape != rp.shape or not (torch.isfinite(q).all()
+                                                           and torch.isfinite(r).all()):
+        fail(f"{name}: K6 gave {tuple(q.shape)}, {tuple(r.shape)} or non-finite values")
+    proj, rec, iso, n_live = k6_agreement(bmat, q, r, qp, rp)
+    err = max(float((q - qp).abs().max()), float((r - rp).abs().max()))
+    ok = k6_within(proj, rec, iso)
+    I = bmat.shape[0]
+    path = ("resident" if split_kernel._lib().tnml_rangefinder_resident(I, min(rank + 8, I))
+            else "global-panel")
+    print(f"[kernel] rangefinder_split {name} rank={rank} ({path} path): live block "
+          f"{n_live}/{rank} |QQt-Q'Q't|={proj:.3g} (tol {K1_PROJ_TOL:g}) |QR-Q'R'|/max|B|="
+          f"{rec:.3g} (tol {K1_REC_TOL:g}) iso={iso:.3g} (tol {K1_ISO_TOL:g}) |Q-Q'|,|R-R'| "
+          f"max={err:.3g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: K6 disagrees with its plain version")
+    return err
+
+
+def phase_rangefinder_kernels(captured) -> float:
+    bmat = captured["bmat"]
+    gen = torch.Generator().manual_seed(SEED + 6)
+    edge = bmat.clone()
+    edge[D:] = 0.0  # the left chain end: only bond slot 0 of the left leg is live
+    cases = [
+        (f"flagship step {CAPTURE_STEP} I={bmat.shape[0]} J={bmat.shape[1]}", bmat, M),
+        ("ragged I=130 J=1000", (torch.randn((130, 1000), generator=gen) / 30).to(DEVICE), 60),
+        ("I=512 J=5120", gapped(512, 5120, 256, gen).float().to(DEVICE), 256),
+        (f"edge step (rows >= {D} zero) I={bmat.shape[0]}", edge, M),
+    ]
+    return max(compare_rangefinder(*c) for c in cases)
+
+
+def rf_loaders(seed: int):
+    """train_model's loaders as cli/training_mnist.py builds them (raw
+    pixels, validation carved from the train part, an even number of train
+    batches): 2 batches of 256, and validation and test batches of 64
+    instead of the CLI's 256 so that the 77 validation samples fill one."""
+    n_train = 3 * BATCH
+    x, y = pooled(n_train + BATCH, seed)
+    return prepare_dataset(x, y, n_train / len(x), 0.1, train_batch_size=BATCH,
+                           val_batch_size=64, test_batch_size=64, embed=False, seed=SEED,
+                           even_train_batches=True)
+
+
+def phase_rangefinder_train(mps0):
+    train_loader, val_loader, _ = rf_loaders(SEED + 6)
+    if len(train_loader) != RF_BATCHES:
+        fail(f"prepare_dataset gave {len(train_loader)} train batches, want {RF_BATCHES}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mps, val_acc, var_hist = train_model(
+        mps0, train_loader, val_loader, lr=LR, n_epochs=1, weight_dec=WD, L2_flag=False,
+        svd_method="rangefinder", split_mode="canonical", verbose=False,
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    want = RF_BATCHES * STEPS
+    if launched["rangefinder_split"] != want or any(
+            v for k, v in launched.items() if k != "rangefinder_split"):
+        fail(f"the rangefinder train_model launched {launched} (want K6 {want} times, "
+             "nothing else)")
+    if mps.device.type != "cuda" or not (torch.isfinite(mps.sites).all()
+                                         and torch.isfinite(mps.label_site).all()):
+        fail("the rangefinder train_model left a non-finite model or one off the card")
+    if var_hist.shape != (1, 2, want) or len(val_acc) != 1 or mps.l_pos != 0:
+        fail(f"train_model returned var_hist {var_hist.shape}, {len(val_acc)} val accuracies, "
+             f"label at {mps.l_pos}")
+    print(f"[rangefinder] train_model N={N} M={M} L={L} B={BATCH}, rangefinder split, loaders "
+          f"from prepare_dataset, {RF_BATCHES} batches: {seconds:.2f} s "
+          f"({seconds / RF_BATCHES * 1e3:.1f} ms/batch, validation included); K6 launches "
+          f"{launched['rangefinder_split']} = {RF_BATCHES} x {STEPS}; val acc {val_acc[0]:.4f}")
+    return mps, launched["rangefinder_split"], seconds / RF_BATCHES
+
+
+def plain_rangefinder_on_host(bmat, rank):
+    """K6's plain version on the host CPU: on the card its ~20,000 small
+    launches per split take about half a second, which a 195-step sweep
+    cannot afford here."""
+    q, r = split_kernel.rangefinder_split_plain(bmat.cpu(), rank)
+    return q.to(bmat.device), r.to(bmat.device)
+
+
+def rf_sweep(mps, xb, yb):
+    return sweep_once(mps, psi_embed(xb), one_hot_labels(yb, L, torch.float32), LR, WD, rf_cfg())
+
+
+def phase_rangefinder_sweep(mps0, xb, yb, x_fresh, y_fresh) -> None:
+    """One rangefinder sweep through K6, and the same sweep with K6's plain
+    version, whose every split is also run through K6 and held against it;
+    the two sweeps, and the K6 sweep against the polar sweep, by quality."""
+    kern = rf_sweep(mps0, xb, yb)
+    kernel = split_kernel.rangefinder_split
+    steps = []
+
+    # wraps: the wrapper counts its launches on whatever its module's name
+    # for it holds, here this spy
+    @functools.wraps(kernel)
+    def plain_step(bmat, rank):
+        qp, rp = plain_rangefinder_on_host(bmat, rank)
+        q, r = kernel(bmat, rank)
+        steps.append(k6_agreement(bmat, q, r, qp, rp))
+        return qp, rp
+
+    t0 = time.perf_counter()
+    with mock.patch.object(split_kernel, "rangefinder_split", plain_step):
+        plain = sweep_once(mps0, psi_embed(xb), one_hot_labels(yb, L, torch.float32), LR, WD,
+                           rf_cfg())
+    plain_s = time.perf_counter() - t0
+    worst = [max(st[i] for st in steps) for i in range(3)]
+    deficient = sum(st[3] < M for st in steps)
+    ok = len(steps) == STEPS and k6_within(*worst)
+    print(f"[rangefinder] the sweep with K6's plain version on the host ({plain_s:.1f} s), K6 on "
+          f"each of its {len(steps)} splits: worst live-block |QQt-Q'Q't|={worst[0]:.3g} (tol "
+          f"{K1_PROJ_TOL:g}) |QR-Q'R'|/max|B|={worst[1]:.3g} (tol {K1_REC_TOL:g}) iso="
+          f"{worst[2]:.3g} (tol {K1_ISO_TOL:g}); {deficient} steps with fewer than {M} live "
+          f"columns (smallest {min(st[3] for st in steps)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("K6 disagrees with its plain version along the sweep")
+
+    pert = rf_sweep(mps0.replace(label_site=mps0.label_site * (1 + RF_PERTURB)), xb, yb)
+    exact = sweep_once(mps0, psi_embed(xb), one_hot_labels(yb, L, torch.float32), LR, WD,
+                       rf_cfg()._replace(svd_method="svd"))
+    polar = one_sweep(mps0, xb, yb, "xla")
+    phi_fresh = psi_embed(x_fresh)
+    scores = {what: mps_forward(m, phi_fresh) for what, m in
+              (("init", mps0), ("K6", kern[0]), ("plain", plain[0]), ("rescaled", pert[0]),
+               ("svd", exact[0]), ("polar", polar[0]))}
+    scores["rescaled"] = scores["rescaled"] / (1 + RF_PERTURB)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    acc = {what: float((sc.argmax(dim=0) == y_fresh).float().mean()) for what, sc in scores.items()}
+    if not all(torch.isfinite(sc).all() for sc in scores.values()):
+        fail("a sweep left non-finite scores")
+    ok = abs(acc["K6"] - acc["plain"]) <= QUALITY_ACC_TOL and acc["K6"] >= RF_MIN_ACC
+    print(f"[rangefinder] K6 sweep vs plain-version sweep: f_final {rel(kern[2], plain[2]):.3g}, "
+          f"fresh scores {rel(scores['K6'], scores['plain']):.3g} of max|f|; rounding floor, "
+          f"the K6 sweep on the model rescaled by 1 + {RF_PERTURB:g}: f_final "
+          f"{rel(kern[2], pert[2] / (1 + RF_PERTURB)):.3g}, fresh scores "
+          f"{rel(scores['K6'], scores['rescaled']):.3g}")
+    print(f"[rangefinder] accuracy on {len(y_fresh)} fresh requests (max|f|): "
+          + ", ".join(f"{k} {acc[k]:.4f} ({float(scores[k].abs().max()):.3g})" for k in scores)
+          + f"; held: |K6 - plain| <= {QUALITY_ACC_TOL:g}, K6 >= {RF_MIN_ACC:g} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the rangefinder sweep does not train, or differs from its plain-version sweep")
+
+
+def phase_canonical(requests, trained, x_fresh) -> None:
+    """product_init(canonicalize=True) at the flagship on the card, and
+    canonicalize of the model train_model left (label at site 0)."""
+    mps = product_init(torch.Generator().manual_seed(SEED), N=N, M=M, D=D, L=L,
+                       act_fn="linear", loss_fn="MSE", calibration_x=requests[:512],
+                       canonicalize=True)
+    if mps.device.type != "cuda":
+        fail(f"product_init(canonicalize=True) placed the model on {mps.device}")
+    a = mps.sites[1:].reshape(N - 1, M, D * M).double()
+    p = a @ a.transpose(1, 2)
+    iso = float((p @ p - p).abs().max())
+    f_max = float(mps_forward(mps, psi_embed(torch.as_tensor(requests[:512], device=DEVICE)))
+                  .abs().max())
+    canon = canonicalize(trained)
+    before = mps_forward(trained, psi_embed(x_fresh))
+    kept = float((mps_forward(canon, psi_embed(x_fresh)) - before).abs().max()
+                 / before.abs().max())
+    a = canon.sites[1:].reshape(N - 1, M, D * M).double()
+    p = a @ a.transpose(1, 2)
+    iso_c = float((p @ p - p).abs().max())
+    ok = max(iso, abs(f_max - 1.0), kept, iso_c) <= CANON_TOL
+    print(f"[canonical] product_init(canonicalize=True) on {mps.device}: |P P - P| of sites "
+          f"1..{N - 1} {iso:.3g}, max|f| on the calibration batch {f_max:.7f} (target 1); canonicalize of the "
+          f"trained model: scores on fresh requests kept to {kept:.3g} of max|f|, |P P - P| "
+          f"{iso_c:.3g} (tol {CANON_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the canonical gauge is off on the card")
+
+
+def phase_small_splits() -> None:
+    """gram, cholsvd, rangefinder (below K6's 128 rows) and svd, once each on
+    the card, held by Q R against a float64 exact split."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    b64 = (30.0 * gapped(64, 640, 32, gen)).to(DEVICE)
+    u, s, vh = torch.linalg.svd(b64, full_matrices=False)
+    exact = (u[:, :32] * s[:32]) @ vh[:32]
+    b = b64.float()
+    reset_counts()
+    errs = {}
+    for method in ("gram", "cholsvd", "rangefinder", "svd"):
+        q, r = svd_mod.truncated_svd_split(b, 32, method, split_mode="canonical")
+        if q.device.type != "cuda" or q.shape != (64, 32) or not torch.isfinite(q @ r).all():
+            fail(f"the {method} split gave {tuple(q.shape)} on {q.device} or non-finite values")
+        errs[method] = float((q.double() @ r.double() - exact).abs().max() / b64.abs().max())
+    ok = max(errs.values()) <= SMALL_SPLIT_TOL and not any(counts().values())
+    print(f"[splits] I=64 J=640 rank=32 float32 on the card, |QR - exact|/max|B|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {SMALL_SPLIT_TOL:g}); kernel launches {sum(counts().values())} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("a small-I split is off the exact split, or launched a kernel")
+
+
+# ---- phase 9: the large-bond path (M=512) -------------------------------------
 
 def large_cfg(factored: str) -> SweepConfig:
     return flagship_cfg("xla")._replace(factored_update=factored)
@@ -731,7 +1038,7 @@ def phase_large_sweep(mps0, xb, yb, x_fresh, y_fresh) -> dict:
     return launched
 
 
-# ---- phase 9: timing ----------------------------------------------------------
+# ---- phase 10: timing ---------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 20) -> float:
     fn()
@@ -754,13 +1061,14 @@ def host_ms(fn, reps: int = 10) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def turns(name, kern, plain, reps=20, library=None):
+def turns(name, kern, plain, reps=20, library=None, plain_reps=None):
     """Kernel vs plain in turns (plain, kernel, kernel, plain), with the
     PyTorch-call yardstick, where there is one, in the middle; mean ms of
     each (None for a missing yardstick)."""
-    p1, k1 = cuda_ms(plain, reps), cuda_ms(kern, reps)
+    plain_reps = plain_reps or reps
+    p1, k1 = cuda_ms(plain, plain_reps), cuda_ms(kern, reps)
     lib = [cuda_ms(library, reps) for _ in range(2)] if library is not None else None
-    k2, p2 = cuda_ms(kern, reps), cuda_ms(plain, reps)
+    k2, p2 = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
     print(f"[timing] {name}: kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us, plain "
           f"{p1 * 1e3:.1f} / {p2 * 1e3:.1f} us"
           + (f", PyTorch call {lib[0] * 1e3:.1f} / {lib[1] * 1e3:.1f} us" if lib else ""))
@@ -841,21 +1149,28 @@ PROFILE_KERNELS = {
 }
 
 
-def profile_owner(name: str):
+# K6's launches; its tile pass shares K4/K5's name, so a rangefinder sweep's
+# profile, where no K4 or K5 runs, counts it for K6
+RF_PROFILE = {"K6": ("rf_serial_kernel", "rf_finish_kernel", "rf_r_kernel",
+                     "sketch_tile_kernel")}
+
+
+def profile_owner(name: str, groups=PROFILE_KERNELS):
     """The port's kernel that a profiled CUDA kernel belongs to, by its
-    demangled name ``(anonymous namespace)::<kernel>(<args>)``, or None."""
-    return next((kern for kern, parts in PROFILE_KERNELS.items()
-                 if any(f"::{p}(" in name for p in parts)), None)
+    demangled name ``(anonymous namespace)::<kernel>(<args>)`` (or
+    ``<kernel><template args>(<args>)``), or None."""
+    return next((kern for kern, parts in groups.items()
+                 if any(f"::{p}(" in name or f"::{p}<" in name for p in parts)), None)
 
 
-def summarise_profile(engine, prof, wall_ms) -> None:
+def summarise_profile(engine, prof, wall_ms, groups=PROFILE_KERNELS) -> None:
     """Device time by kernel over one profiled sweep. The idle share is taken
     against the unprofiled sweep's wall time ``wall_ms``: the tracer inflates
     the host side of a sweep of ~30 small launches per step."""
     by = prof["by_kernel_ms"]
     busy = sum(by.values())
-    ours = {kern: sum(v for k, v in by.items() if profile_owner(k) == kern)
-            for kern in PROFILE_KERNELS}
+    ours = {kern: sum(v for k, v in by.items() if profile_owner(k, groups) == kern)
+            for kern in groups}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] {engine} sweep: device busy {busy:.1f} ms of {wall_ms:.1f} ms unprofiled "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}; profiled wall "
@@ -875,6 +1190,47 @@ def sketch_work(I, J, q, gram):
 
 def gmul_work(I, J, q):
     return 4.0 * I * J * q, 4.0 * (I * J + 2 * I * q)
+
+
+def rf_work(I, J, q, rank, n_iter=6):
+    """FLOPs and bytes of K6: the sketch, the Gram and |B|^2; n_iter products
+    with G; n_iter + 1 column normalisations and Householder passes (each
+    reflector's dot products and updates, forward and back: 8 (I-j)(q-j)
+    at step j); R = Q^T B. B and Omega read once, Q and R written once."""
+    hqr = sum(8.0 * (I - j) * (q - j) for j in range(q))
+    flops = (2.0 * I * J * q + 2.0 * I * I * J + 2.0 * I * J + n_iter * 2.0 * I * I * q
+             + (n_iter + 1) * (hqr + 3.0 * I * q) + 2.0 * rank * I * J)
+    return flops, 4.0 * (I * J + J * q + I * rank + rank * J)
+
+
+def phase_rangefinder_timing(mps, captured, xb, yb) -> dict:
+    """K6 vs its plain version on the card in turns, torch.linalg.qr on K6's
+    panel for context, ms per rangefinder sweep, and a profiled sweep."""
+    bmat = captured["bmat"]
+    I, J = bmat.shape
+    q_cols = min(M + 8, I)
+    ms = {"rangefinder_split": turns(
+        f"rangefinder_split I={I} J={J} q={q_cols} rank={M}",
+        lambda: split_kernel.rangefinder_split(bmat, M),
+        lambda: split_kernel.rangefinder_split_plain(bmat, M), reps=10, plain_reps=2)}
+    panel = torch.randn((I, q_cols), generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+    qr_ms = cuda_ms(lambda: torch.linalg.qr(panel), reps=20)
+    print(f"[context] torch.linalg.qr of K6's ({I}, {q_cols}) panel on the card: "
+          f"{qr_ms * 1e3:.1f} us per call (K6 runs 7 such orthonormalisations and 6 products "
+          f"with G serially; context for a blocked redesign, not a yardstick)")
+    sweep_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rf_sweep(mps, xb, yb)
+        torch.cuda.synchronize()
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[timing] sweep engine=xla (rangefinder split, K6): {sweep_ms[0]:.1f} / "
+          f"{sweep_ms[1]:.1f} ms, {BATCH / (sum(sweep_ms) / 2) * 1e3:.0f} samples/s")
+    ms["rf_sweep"] = sum(sweep_ms) / 2
+    summarise_profile("rangefinder", device_time_table(lambda: rf_sweep(mps, xb, yb)),
+                      ms["rf_sweep"], groups=RF_PROFILE)
+    return ms
 
 
 def phase_large_timing(mps, large, captured, xb, yb) -> dict:
@@ -996,14 +1352,20 @@ def main() -> None:
                                                            x_fresh)
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
     launches["polar_sketch_gram"] = phase_two_stage(captured)["polar_sketch_gram"]
+    xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
+    yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
+
+    errs["rangefinder_split"] = phase_rangefinder_kernels(captured)
+    rf_trained, launches["rangefinder_split"], rf_batch_s = phase_rangefinder_train(mps)
+    phase_rangefinder_sweep(mps, xb, yb, x_fresh, y_fresh)
+    phase_canonical(requests, rf_trained, x_fresh)
+    phase_small_splits()
 
     big = large_model(requests)
     if big.device.type != "cuda":
         fail(f"product_init placed the M={M_LARGE} model on {big.device}, not on the card")
     print(f"[model] product_init N={N} M={M_LARGE} D={D} L={L} on {big.device}, "
           f"{big.sites.numel() * 4 / 1e6:.1f} MB of sites")
-    xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
-    yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
     large = capture_large(big, xb, yb)
     errs.update(phase_large_kernels(large, captured))
     large_batch_s = phase_large_train(big, x_tr, y_tr, x_val, y_val)
@@ -1012,6 +1374,7 @@ def main() -> None:
     launches["gramfree_gmul"] = launched["gramfree_gmul"]
 
     ms = phase_timing(mps, requests, x_big, captured, x_tr, y_tr)
+    ms.update(phase_rangefinder_timing(mps, captured, xb, yb))
     ms.update(phase_large_timing(big, large, captured, xb, yb))
 
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
@@ -1024,6 +1387,7 @@ def main() -> None:
         "gramfree_sketch": sketch_work(I_big, J_big, M_LARGE, False),
         "gramfree_gmul": gmul_work(I_big, J_big, M_LARGE),
         "polar_sketch_gram": sketch_work(M * D, L * D * M, M, True),
+        "rangefinder_split": rf_work(M * D, L * D * M, min(M + 8, M * D), M),
     }
     for name, (flops, nbytes) in list(work.items()) + [
             ("right_env_chain B=8192", chain_work(N - 1, M, BIG)),
@@ -1045,6 +1409,8 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:334", "gramfree_gmul"),
         ("polar_sketch_gram", "polar_sketch.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:551", "polar_sketch_gram"),
+        ("rangefinder_split", "rangefinder_split.cu",
+         "tensornetworkforml_tpu/ops/kernels/split_kernel.py:157", "rangefinder_split"),
     ):
         b_ms, b_by = bound_ms(*work[name])
         rows.append({
@@ -1058,12 +1424,13 @@ def main() -> None:
             "plain_ms": ms[key][1],
             "bound_ms": b_ms,
             "bound_by": b_by,
-            # K1, K2 and K3: no single PyTorch call computes what they compute
+            # K1, K2, K3 and K6: no single PyTorch call computes what they compute
             "library_ms": ms[key][2],
         })
     print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "
-          f"ms/batch; M={M_LARGE} ms per sweep {ms['large_sweep']}; M={M_LARGE} train_model "
-          f"{large_batch_s * 1e3:.1f} ms/batch; {time.perf_counter() - T_START:.1f} s in all")
+          f"ms/batch; rangefinder sweep {ms['rf_sweep']:.1f} ms, its train_model "
+          f"{rf_batch_s * 1e3:.1f} ms/batch; M={M_LARGE} ms per sweep {ms['large_sweep']}; "
+          f"M={M_LARGE} train_model {large_batch_s * 1e3:.1f} ms/batch; {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -7,10 +7,11 @@ names. Kernels written by hand for Hopper live in ``csrc/`` and are built
 with ``nvcc`` at first use (``ops/kernels/_build.py``); on CPU tensors each
 kernel's wrapper runs its plain PyTorch version.
 
-Ported so far: serving and training -- embedding, contractions, the splits,
-the ``MPS`` model, ``.npz`` checkpoints, the data helpers and loaders,
-``Predictor`` with its chain kernel, and the two-site sweep, epoch and
-``train_model`` with the polar-iteration and pre-split kernels. The entry
+Ported so far: serving and training -- embedding, contractions, every split
+method, the ``MPS`` model with its canonical gauge, ``.npz`` checkpoints, the
+data helpers and loaders, ``Predictor`` with its chain kernel, and the
+two-site sweep, epoch and ``train_model`` with the polar-iteration,
+pre-split, streaming-reduction and rangefinder kernels. The entry
 points run on the card unless given ``device="cpu"``. ROADMAP.md lists what
 is not ported yet.
 """

@@ -10,9 +10,14 @@ module is the port's copy of the JAX package's ``data/loader.py`` surface:
   trainer uses (one host->device copy per batch).
 * ``with_batch_size`` and ``warmup_batch_size`` serve ``train_model``'s
   small-batch warmup epochs.
+* ``prepare_dataset`` matches the reference signature and semantics:
+  flatten, optionally psi-embed on the host (``psi_embed_host``), split by
+  percentage, carve validation from the end of the train part, drop the last
+  partial batch of train and validation.
 
 The same seeds give the same batches as the JAX package's loaders.
-``psi_embed_host`` and ``prepare_dataset`` wait for the native-loader port
+``psi_embed_host`` is NumPy; the JAX package's ctypes path through
+``native/data_core.cpp`` computes the same values and is not ported
 (ROADMAP queue 1 item 5).
 """
 
@@ -131,3 +136,60 @@ def warmup_batch_size(batch_size: int) -> int:
     (340 -> 113, not 170).
     """
     return max(1, batch_size // max(2, -(-batch_size // 128)))
+
+
+def psi_embed_host(x: np.ndarray) -> np.ndarray:
+    """Host psi embedding ``(..., N) -> (..., N, 2)``: ``[sin(pi x/2),
+    cos(pi x/2)]`` in the dtype of ``x``."""
+    half_pi_x = (np.pi / 2.0) * np.asarray(x)
+    return np.stack([np.sin(half_pi_x), np.cos(half_pi_x)], axis=-1)
+
+
+def prepare_dataset(
+    data: np.ndarray,
+    label: np.ndarray,
+    train_perc: float,
+    val_perc: float,
+    train_batch_size: int,
+    val_batch_size: int,
+    test_batch_size: int,
+    embed: bool = True,
+    seed: Optional[int] = None,
+    even_train_batches: bool = False,
+):
+    """Flatten, (optionally) embed, split, and build the three loaders.
+
+    The first ``train_perc`` of the samples are train, of which the LAST
+    ``val_perc`` fraction is validation; the rest is test. The train and
+    validation loaders shuffle and drop the last partial batch, the test
+    loader does neither. ``embed=False`` yields raw flattened pixels
+    ``(B, N)``, embedded on the device by the trainer.
+
+    ``even_train_batches`` trims the train subset to an even number of
+    batches (when there are at least 3): sweep directions alternate per
+    batch, and an odd count would leave the label leg at the far chain end
+    and keep every later epoch off the whole-epoch path.
+    """
+    x = np.asarray(data).reshape(len(data), -1)
+    if embed:
+        x = psi_embed_host(x)
+
+    m = int(len(x) * train_perc)
+    train_set = NumpyDataset(x[:m], np.asarray(label)[:m])
+    test_set = NumpyDataset(x[m:], np.asarray(label)[m:])
+
+    train_len = int(m * (1 - val_perc))
+    if even_train_batches:
+        n_batches = train_len // train_batch_size
+        if n_batches % 2 == 1 and n_batches >= 3:
+            train_len = (n_batches - 1) * train_batch_size
+    train_loader = ArrayLoader(
+        train_set, train_batch_size, indices=np.arange(train_len), shuffle=True,
+        drop_last=True, seed=seed,
+    )
+    val_loader = ArrayLoader(
+        train_set, val_batch_size, indices=np.arange(train_len, m), shuffle=True,
+        drop_last=True, seed=None if seed is None else seed + 1,
+    )
+    test_loader = ArrayLoader(test_set, test_batch_size, drop_last=False)
+    return train_loader, val_loader, test_loader

@@ -7,6 +7,13 @@ from tensornetworkforml_torch.models.mps import (
     loss_derivative,
     accuracy_from_scores,
 )
+from tensornetworkforml_torch.models.canonical import (
+    canonical_init,
+    canonicalize,
+    left_canonicalize,
+    normalize_label,
+    right_canonicalize,
+)
 from tensornetworkforml_torch.models.serving import Predictor
 
 __all__ = [
@@ -18,4 +25,9 @@ __all__ = [
     "loss_derivative",
     "accuracy_from_scores",
     "Predictor",
+    "canonical_init",
+    "canonicalize",
+    "left_canonicalize",
+    "normalize_label",
+    "right_canonicalize",
 ]

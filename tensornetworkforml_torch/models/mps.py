@@ -208,17 +208,13 @@ def product_init(
     environment by a factor of mean ~1 at every site, so the output is O(1)
     for any chain length.
 
-    ``canonicalize=True`` needs the canonical gauge, which is not ported yet
-    (ROADMAP queue 1 item 2) and raises ``NotImplementedError``.
+    ``canonicalize=True`` gauge-fixes the init into right-canonical form
+    (per-step renormalised, ``models/canonical.py``) and then scales the
+    label core so that max|f| on the calibration batch is ``target_abs_f``.
     ``device=None`` is the card (``resolve_device``).
     """
     if act_fn not in ACT_FNS or loss_fn not in LOSS_FNS:
         raise ValueError(f"act_fn must be in {ACT_FNS}, loss_fn in {LOSS_FNS}")
-    if canonicalize:
-        raise NotImplementedError(
-            "product_init(canonicalize=True) needs models/canonical.py, "
-            "which is not ported yet (ROADMAP queue 1 item 2)"
-        )
     device = resolve_device(device)
     if calibration_x is not None:
         x = torch.as_tensor(calibration_x, dtype=dtype, device=device)
@@ -249,6 +245,22 @@ def product_init(
     label_site[0] = label_full[0]
 
     mps = MPS(sites, label_site, l_pos=0, act_fn=act_fn, loss_fn=loss_fn, T=T)
+
+    if canonicalize:
+        # isometric sites bound every environment and L2 transfer product by 1
+        from tensornetworkforml_torch.models.canonical import _right_canonicalize_arrays
+
+        new_sites, new_label = _right_canonicalize_arrays(
+            mps.sites, mps.label_site, renormalize=True
+        )
+        mps = mps.replace(sites=new_sites, label_site=new_label)
+        if calibration_x is not None:
+            phi_cal = psi_embed(x)
+        else:
+            phi_cal = psi_embed(_uniform(generator, (16, N), dtype, device))
+        f_max = mps_forward(mps, phi_cal).abs().max()
+        scale = target_abs_f / torch.clamp(f_max, min=1e-30)
+        return mps.replace(label_site=mps.label_site * scale)
 
     # Large-M output-scale guard. The noise term random-walks the
     # environment: per site the amplitude grows like

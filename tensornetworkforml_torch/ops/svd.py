@@ -1,20 +1,31 @@
 """Truncated split of the two-site tensor: ``bmat (I, J) -> (I, rank) @ (rank, J)``.
 
-The counterpart of the JAX package's ``ops/svd.py``. Methods ported here:
+The counterpart of the JAX package's ``ops/svd.py``; every method is ported:
 
-  * ``"svd"``    -- ``torch.linalg.svd``, with the ``keep`` rank cap and the
+  * ``"svd"``     -- ``torch.linalg.svd``, with the ``keep`` rank cap and the
     adaptive energy mask; ``"shared"`` or ``"canonical"`` gauge.
-  * ``"cholqr"`` -- the matmul/Cholesky-only subspace split
+  * ``"gram"``    -- ``eigh`` of the smaller Gram matrix (tall matrices
+    recurse on the transpose in the shared gauge), with two Newton-Schulz
+    steps on U in the canonical gauge.
+  * ``"cholsvd"`` -- SVD of the Cholesky factor of ``B B^T`` (trace-scaled
+    jitter), with ``keep`` and the adaptive energy mask.
+  * ``"cholqr"``  -- the matmul/Cholesky-only subspace split
     (``batched_cholqr_split``), canonical gauge only.
-  * ``"polar"``  -- the polar Newton-Schulz split, canonical gauge only.
+  * ``"polar"``   -- the polar Newton-Schulz split, canonical gauge only.
     Up to I = 768 rows it is ``ops/kernels/polar_split.py::
     hybrid_polar_split``, whose subspace iteration is the kernel K1 on a
     CUDA tensor; above, ``gramfree_split``, whose two streaming reductions
-    over B are the kernels K4a and K4b. The choice goes by shape alone, on
-    every device, as the JAX package's goes on its chip.
+    over B are the kernels K4a and K4b.
+  * ``"rangefinder"`` -- the randomized rangefinder split, canonical gauge
+    only: from I = 128 rows ``ops/kernels/split_kernel.py::
+    rangefinder_split`` (the kernel K6 on a CUDA tensor), below it
+    ``_rangefinder_split`` (sketch, QR, Rayleigh-Ritz, one polish).
+  * ``"rangefinder_pallas"`` -- ``rangefinder_split`` at every I.
 
-``gram``, ``cholsvd``, ``rangefinder`` and ``rangefinder_pallas`` are not
-ported yet and raise ``NotImplementedError``.
+The polar and rangefinder choices go by shape alone, on every device, as the
+JAX package's go on its chip. Its CPU fallback differs: there ``polar`` runs
+the hybrid split at every I, and both rangefinder methods run
+``_rangefinder_split`` at every I.
 """
 
 from __future__ import annotations
@@ -24,9 +35,11 @@ import functools
 import torch
 
 _OMEGA_SEED = 0x52464E44  # the seed of the JAX package's fixed sketch matrix
-# rows above which the polar split goes gram-free (the JAX package's
-# threshold, kept so that both compute the same split at every I)
+# rows above which the polar split goes gram-free, and from which the
+# rangefinder split runs K6 (the JAX package's thresholds, kept so that both
+# compute the same split at every I)
 _GRAMFREE_MIN_I = 768
+_RANGEFINDER_KERNEL_MIN_I = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,13 +53,6 @@ def rangefinder_omega(J: int, q: int, dtype=torch.float32, device=None) -> torch
     gen = torch.Generator().manual_seed(_OMEGA_SEED)
     om = torch.randn((J, q), generator=gen, dtype=torch.float32)
     return om.to(dtype=dtype, device=device)
-
-
-def _not_ported(method: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"svd_method={method!r} is not ported yet (ROADMAP queue 1 item 3"
-        + ("; its kernel K6 is in queue 2)" if method.startswith("rangefinder") else ")")
-    )
 
 
 def truncated_svd_split(
@@ -107,8 +113,20 @@ def truncated_svd_split(
         if bmat.shape[0] > _GRAMFREE_MIN_I:
             return polar_split.gramfree_split(bmat, rank)
         return polar_split.hybrid_polar_split(bmat, rank)
-    if method in ("gram", "cholsvd", "rangefinder", "rangefinder_pallas"):
-        raise _not_ported(method)
+    if method == "gram":
+        return _gram_split(bmat, rank, keep, split_mode)
+    if method == "cholsvd":
+        return _chol_svd_split(bmat, rank, keep, split_mode, adaptive_tol)
+    if method in ("rangefinder", "rangefinder_pallas"):
+        if split_mode != "canonical":
+            raise ValueError("rangefinder split requires split_mode='canonical'")
+        if keep is not None:
+            raise ValueError("rangefinder split does not support rank_mode='reference'")
+        from tensornetworkforml_torch.ops.kernels import split_kernel
+
+        if method == "rangefinder_pallas" or bmat.shape[0] >= _RANGEFINDER_KERNEL_MIN_I:
+            return split_kernel.rangefinder_split(bmat, rank)
+        return _rangefinder_split(bmat, rank, keep, split_mode)
     raise ValueError(f"unknown SVD method {method!r}")
 
 
@@ -119,6 +137,110 @@ def _adaptive_energy_mask(S: torch.Tensor, adaptive_tol: float) -> torch.Tensor:
     total = e.sum()
     prev = torch.cumsum(e, 0) - e
     return (prev < (1.0 - adaptive_tol) * total).to(S.dtype)
+
+
+def _colnorm(y: torch.Tensor) -> torch.Tensor:
+    return y / torch.clamp(torch.linalg.vector_norm(y, dim=0, keepdim=True), min=1e-30)
+
+
+def _rangefinder_split(
+    bmat: torch.Tensor, rank: int, keep=None, split_mode: str = "canonical",
+    n_power: int = 0, oversample: int = 16, n_polish: int = 1,
+):
+    """Randomized rangefinder split ``(Q, Q^T B)``, canonical gauge only:
+    ``Q (I, rank)`` is an exact isometry spanning (approximately) the top
+    ``rank`` row space of B. The Frobenius-prescaled matrix is sketched with
+    ``q = min(rank + oversample, I)`` Gaussian columns, orthonormalised by QR
+    (``n_power`` optional power iterations), rotated onto its top ``rank``
+    Ritz vectors by ``eigh`` of the projected Gram, and polished by
+    ``n_polish`` QR-orthonormalised iterations on ``bs bs^T``."""
+    if split_mode != "canonical":
+        raise ValueError("rangefinder split requires split_mode='canonical'")
+    if keep is not None:
+        raise ValueError("rangefinder split does not support rank_mode='reference'")
+    I, J = bmat.shape
+    q_cols = min(rank + oversample, I)
+    bs = bmat / torch.clamp(torch.linalg.norm(bmat), min=1e-30)
+    y = bs @ rangefinder_omega(J, q_cols, bmat.dtype, bmat.device)
+    y, _ = torch.linalg.qr(_colnorm(y))
+    for _ in range(n_power):
+        y, _ = torch.linalg.qr(_colnorm(bs @ (bs.T @ y)))
+    if q_cols > rank:
+        z = bs.T @ y
+        _, evecs = torch.linalg.eigh(z.T @ z)  # ascending
+        y = y @ evecs.flip(1)[:, :rank]
+    q = y
+    for _ in range(n_polish):
+        q, _ = torch.linalg.qr(_colnorm(bs @ (bs.T @ q)))
+    return q, q.T @ bmat
+
+
+def _chol_svd_split(
+    bmat: torch.Tensor, rank: int, keep=None, split_mode: str = "shared",
+    adaptive_tol: float = 0.0,
+):
+    """Split via the SVD of the Cholesky factor ``C`` of ``B B^T + jitter``:
+    ``svd(C)`` gives B's left singular vectors and values from a square
+    ``(I, I)`` problem. The jitter is ``eps * max(diag(B B^T))`` with eps 1e-6
+    in float32 and 1e-13 in float64; a factorisation that fails gives NaN,
+    as JAX's does. Wide matrices only (``I <= J``)."""
+    I, J = bmat.shape
+    if I > J:
+        raise ValueError(f"cholsvd split expects a wide matrix, got {I} x {J}")
+    gram = bmat @ bmat.T
+    gram = 0.5 * (gram + gram.T)
+    eps = 1e-6 if bmat.dtype != torch.float64 else 1e-13
+    scale = torch.diagonal(gram).max() + 1e-30
+    eye = torch.eye(I, dtype=bmat.dtype, device=bmat.device)
+    C, info = torch.linalg.cholesky_ex(gram + (eps * scale) * eye)
+    C = torch.where(info == 0, C, float("nan"))
+    U, S, _ = torch.linalg.svd(C, full_matrices=False)
+    U, S = U[:, :rank], S[:rank]
+    if keep is not None:
+        S = torch.where(torch.arange(rank, device=S.device) < keep, S, 0.0)
+    if adaptive_tol > 0.0:
+        S = S * _adaptive_energy_mask(S, adaptive_tol)
+    if split_mode == "canonical":
+        svh = U.T @ bmat
+        if keep is not None or adaptive_tol > 0.0:
+            mask = (S > 0).to(bmat.dtype)
+            svh = svh * mask[:, None]
+            U = U * mask[None, :]  # no weight leak past the kept rank
+        return U, svh
+    sqrt_s = torch.sqrt(torch.clamp(S, min=0.0))
+    inv_sqrt = torch.where(S > 0, 1.0 / torch.clamp(sqrt_s, min=1e-30), 0.0)
+    return U * sqrt_s[None, :], inv_sqrt[:, None] * (U.T @ bmat)
+
+
+def _gram_split(bmat: torch.Tensor, rank: int, keep=None, split_mode: str = "shared"):
+    """Split via ``eigh`` of the smaller Gram matrix. A tall matrix recurses
+    on its transpose (shared gauge only: the canonical gauge is left-sided).
+    In the canonical gauge two Newton-Schulz steps restore U's isometry,
+    which the squared spectrum costs in float32."""
+    I, J = bmat.shape
+    if I > J:
+        if split_mode != "shared":
+            raise ValueError(f"canonical gram split expects a wide matrix, got {I} x {J}")
+        right, left = _gram_split(bmat.T, rank, keep, split_mode)
+        return left.T, right.T
+    evals, evecs = torch.linalg.eigh(bmat @ bmat.T)  # ascending
+    evals = evals.flip(0)[:rank]
+    U = evecs.flip(1)[:, :rank]
+    if keep is not None:
+        evals = torch.where(torch.arange(rank, device=evals.device) < keep, evals, 0.0)
+    S = torch.sqrt(torch.clamp(evals, min=0.0))
+    if split_mode == "canonical":
+        for _ in range(2):
+            U = 1.5 * U - 0.5 * U @ (U.T @ U)
+        svh = U.T @ bmat
+        if keep is not None:
+            mask = (S > 0).to(bmat.dtype)
+            svh = svh * mask[:, None]
+            U = U * mask[None, :]
+        return U, svh
+    inv = torch.where(S > 0, 1.0 / torch.clamp(S, min=1e-30), 0.0)
+    svh = (torch.sqrt(S) * inv)[:, None] * (U.T @ bmat)
+    return U * torch.sqrt(S)[None, :], svh
 
 
 def _cholqr_eps(dtype, q_cols: int) -> float:

@@ -19,11 +19,12 @@ sweep is a right sweep on the mirrored chain (sites reversed, bond legs
 swapped), made contiguous before it reaches a kernel.
 
 Engines: ``"xla"`` (the name is kept from the JAX package) runs each step as
-plain tensor operations plus the configured split -- with
-``svd_method="polar"`` the split's subspace iteration is kernel K1 up to
-I = M*D = 768 rows, and above it the split is gram-free with kernels K4a and
-K4b; ``"hybrid"`` runs kernel K2 (``two_site_presplit``) and then K1 on every
-step. The factored large-bond update (``train/factored_step.py``) takes a
+plain tensor operations plus the configured split (every ``svd_method`` of
+``ops/svd.py`` is ported) -- with ``svd_method="polar"`` the split's
+subspace iteration is kernel K1 up to I = M*D = 768 rows, and above it the
+split is gram-free with kernels K4a and K4b; with ``"rangefinder"`` the whole
+split is kernel K6 from I = 128 rows (M >= 64 at D = 2); ``"hybrid"`` runs
+kernel K2 (``two_site_presplit``) and then K1 on every step. The factored large-bond update (``train/factored_step.py``) takes a
 step of the xla engine where the JAX package's rule sends it there
 (``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for a canonical
 fixed-rank polar split with no L2); it runs no kernel. ``engine="fused"``

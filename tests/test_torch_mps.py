@@ -166,9 +166,19 @@ def test_product_init_statistics():
     assert 0.1 <= float(f.abs().max()) <= 10.0
 
 
-def test_product_init_canonicalize_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tm.product_init(torch.Generator(), N=4, M=2, canonicalize=True)
+def test_product_init_canonicalize_sets_the_output_scale():
+    """``canonicalize=True`` raised until ``models/canonical.py`` was ported;
+    it now gives right-isometric sites and max|f| = ``target_abs_f`` on the
+    calibration batch (tests/test_torch_canonical.py holds it against JAX)."""
+    x = np.random.default_rng(4).random((8, 4))
+    mps = tm.product_init(torch.Generator().manual_seed(0), N=4, M=2, canonicalize=True,
+                          calibration_x=x, target_abs_f=2.0, dtype=torch.float64,
+                          device="cpu")
+    f = tm.mps_forward(mps, t_psi(torch.as_tensor(x)))
+    assert abs(float(f.abs().max()) - 2.0) <= 1e-12
+    for a in mps.sites[1:].reshape(3, 2, -1):
+        p = a @ a.T
+        assert torch.allclose(p @ p, p, atol=1e-12)
 
 
 def test_product_init_is_fixed_by_the_seed():

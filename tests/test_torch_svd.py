@@ -124,10 +124,20 @@ def test_split_rejections_name_their_reasons():
 
 
 @pytest.mark.parametrize("method", ["gram", "cholsvd", "rangefinder", "rangefinder_pallas"])
-def test_unported_methods_name_their_roadmap_item(method):
-    b = torch.as_tensor(_bmat(8, 24, seed=1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tsvd.truncated_svd_split(b, 4, method, split_mode="canonical")
+def test_remaining_methods_split_like_the_exact_svd(method):
+    """The four methods that raised until they were ported give an isometric
+    left factor and the exact SVD's truncation on a matrix whose spectrum
+    drops by 1e4 after the rank (float64; the rangefinder methods capture
+    the subspace to ~(1e-4)^(2 n_iter))."""
+    rng = np.random.default_rng(1)
+    u = np.linalg.qr(rng.standard_normal((8, 8)))[0]
+    v = np.linalg.qr(rng.standard_normal((24, 8)))[0]
+    b = torch.as_tensor((u * [3.0, 2.0, 1.5, 1.0, 1e-4, 1e-4, 1e-5, 1e-5]) @ v.T)
+    q, r = tsvd.truncated_svd_split(b, 4, method, split_mode="canonical")
+    us, rs = tsvd.truncated_svd_split(b, 4, "svd", split_mode="canonical")
+    assert q.shape == (8, 4) and r.shape == (4, 24) and q.dtype == torch.float64
+    _close(q.T @ q, np.eye(4), 1e-6 if method == "rangefinder_pallas" else TOL64)
+    _close(q @ r, us @ rs, 1e-6)
 
 
 def test_omega_is_cached_and_fixed_by_its_seed():

@@ -273,9 +273,7 @@ def test_step_metrics_off_gives_zeros():
 @pytest.mark.parametrize("kw,match", [
     (dict(engine="fused"), "K7"),
     (dict(dist_split="cholqr"), "queue 1 item 11"),
-    (dict(svd_method="rangefinder"), "K6"),
     (dict(matmul_precision="tensorfloat32"), "full float32"),
-    (dict(svd_method="gram", split_mode="shared"), "queue 1 item 3"),
 ])
 def test_unported_configurations_raise_naming_their_item(kw, match):
     _, t, x, y = _models(N=6, M=4, L=2, B=8, dtype="float32")
@@ -283,6 +281,23 @@ def test_unported_configurations_raise_naming_their_item(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tsw.sweep_once(t, psi_embed(torch.as_tensor(x, dtype=torch.float32)),
                        torch.as_tensor(np.eye(2, dtype=np.float32)[y].T), 0.05, 0.0, cfg)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(svd_method="rangefinder", split_mode="canonical"),
+    dict(svd_method="gram", split_mode="shared"),
+])
+def test_rangefinder_and_gram_sweeps_match_jax(kw, jax_omega):
+    """The two configurations that raised until their splits were ported:
+    a right and a left sweep in float64 (the rangefinder below K6's 128 rows,
+    with the JAX package's Omega) against the JAX package's."""
+    kw = dict(act_fn="linear", loss_fn="MSE", L2_flag=False, **kw)
+    j, t, x, y = _models(N=6, M=4, L=2, B=8, dtype="float64")
+    fresh = np.random.default_rng(9).random((6, 6))
+    jres, tres = _both_sweeps(j, t, x, y, kw)
+    _assert_sweeps_close(jres, tres, fresh, 1e-8)
+    jres2, tres2 = _both_sweeps(jres[0], _port(jres[0]), x, y, kw)
+    _assert_sweeps_close(jres2, tres2, fresh, 1e-8)
 
 
 def test_factored_route_follows_the_jax_rule():
