@@ -26,9 +26,20 @@ phase trains the same model at M=512. Phases:
   6. hybrid  -- fused_epoch with engine="hybrid" on 2 batches: K2 and K1 must
                 each launch 2 x 195 times; the first sweep is held against
                 the xla-engine polar sweep;
-  7. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
+  7. fused   -- K7 (the whole two-site step) against its plain version on the
+                captured step's inputs, with the growth cap and renorm_envs,
+                at a ragged shape and at M=256 (K1's streaming form inside
+                it); fused_epoch with engine="fused" on 2 batches: K7 must
+                launch 2 x 195 times and K1 and K2 not at all; the first
+                sweep is held against the same sweep with K7's plain version
+                and against the xla-engine polar sweep;
+  8. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
                 two-site matrix, held against hybrid_polar_split;
-  8. rangefinder -- the flagship with svd_method="rangefinder" (bench.py's
+  9. all-in-one split -- polar_split (K8) against its plain version on the
+                flagship step's two-site matrix and at a J that needs padding
+                with n_power=2, one call on the flagship matrix (1 launch),
+                held against polar_split_two_stage and hybrid_polar_split;
+ 10. rangefinder -- the flagship with svd_method="rangefinder" (bench.py's
                 high_m_rangefinder): K6 against its plain version on the
                 captured step's two-site matrix, a ragged shape, a shape whose
                 panel does not fit in shared memory and an edge step;
@@ -40,24 +51,25 @@ phase trains the same model at M=512. Phases:
                 product_init(canonicalize=True) and canonicalize on the card;
                 one call of each small-I split (gram, cholsvd, rangefinder,
                 svd) against a float64 exact split;
-  9. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
+  11. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
                 against their plain versions on the two-site matrix of a
                 mid-chain step and at a ragged shape; train_model on 2
                 batches through the factored route (no kernel launches); one
                 sweep with factored_update="off", whose gram-free split runs
                 K4a and K4b 195 times each, held against the same sweep with
                 the plain versions and, by quality, against the factored one;
- 10. timing  -- each kernel vs its plain version with CUDA events (plain,
+ 12. timing  -- each kernel vs its plain version with CUDA events (plain,
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
-                yardstick call), ms per sweep on both engines, on the
+                yardstick call), ms per sweep on the three engines, on the
                 rangefinder split and on both M=512 routes, the device time
                 of a profiled sweep of each (and the host time of the M=512
-                ones), Predictor samples/s, and torch.linalg.qr on K6's
-                panel for context.
+                ones), Predictor samples/s, and for context torch.linalg.qr
+                on K6's panel, the hybrid step (K2, K1 and two products)
+                beside K7 and polar_split_two_stage beside K8.
 
 Launch counts are set to 0 just before each path (serve, train, hybrid,
-two-stage, the rangefinder train_model, the M=512 training and the M=512
-gram-free sweep) and read just after it; the comparisons with plain versions
+fused, two-stage, all-in-one split, the rangefinder train_model, the M=512
+training and the M=512 gram-free sweep) and read just after it; the comparisons with plain versions
 happen outside those windows.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -92,6 +104,7 @@ from tensornetworkforml_torch.ops.kernels import (
     polar_split,
     presplit_kernel,
     split_kernel,
+    step_kernel,
 )
 from tensornetworkforml_torch.train import epoch as epoch_mod
 from tensornetworkforml_torch.train import sweep as sweep_mod
@@ -106,7 +119,7 @@ BIG = 8192
 SEED = 0
 REQUEST_SIZES = (1, 255, 256, 257, 1000)
 LR, WD = 0.05, 1e-5  # bench.py's flagship sweep rate; the training CLI's decay
-TRAIN_BATCHES, HYBRID_BATCHES = 4, 2
+TRAIN_BATCHES, HYBRID_BATCHES, FUSED_BATCHES = 4, 2, 2
 CAPTURE_STEP = N // 2  # a mid-chain step: bonds fully live
 # K3 vs plain: max|kernel - plain| <= TOL * max|plain|. Both run in f32
 # but sum the 2M = 256 terms of a site in different orders, and the rounding
@@ -227,6 +240,7 @@ KERNELS = {  # source name -> the function that builds and binds it
     "presplit": presplit_kernel._lib,
     "polar_sketch": polar_split._sketch_lib,
     "rangefinder_split": split_kernel._lib,
+    "two_site_step": step_kernel._lib,
 }
 
 
@@ -380,7 +394,7 @@ def phase_kernel(mps, x_big: torch.Tensor, captured: dict) -> dict:
     return errs
 
 
-# ---- phases 4-6: the main paths ---------------------------------------------
+# ---- phases 4-9: the main paths ---------------------------------------------
 
 WRAPPERS = {
     "right_env_chain": env_scan.right_env_chain,
@@ -390,6 +404,8 @@ WRAPPERS = {
     "gramfree_gmul": polar_split.gramfree_gmul,
     "polar_sketch_gram": polar_split.polar_sketch_gram,
     "rangefinder_split": split_kernel.rangefinder_split,
+    "two_site_step": step_kernel.two_site_step,
+    "polar_split": polar_split.polar_split,
 }
 
 
@@ -444,7 +460,8 @@ def plain_versions():
     return (mock.patch.object(polar_split, "polar_iterate", polar_split.polar_iterate_reference),
             mock.patch.object(sweep_mod, "polar_iterate", polar_split.polar_iterate_reference),
             mock.patch.object(sweep_mod, "two_site_presplit",
-                              presplit_kernel.two_site_presplit_reference))
+                              presplit_kernel.two_site_presplit_reference),
+            mock.patch.object(sweep_mod, "two_site_step", step_kernel.two_site_step_reference))
 
 
 def one_sweep(mps, x, y, engine, plain=False):
@@ -452,8 +469,8 @@ def one_sweep(mps, x, y, engine, plain=False):
     args = (mps, psi_embed(x), one_hot_labels(y, L, torch.float32), LR, WD, cfg)
     if not plain:
         return sweep_once(*args)
-    p1, p2, p3 = plain_versions()
-    with p1, p2, p3:
+    p1, p2, p3, p4 = plain_versions()
+    with p1, p2, p3, p4:
         return sweep_once(*args)
 
 
@@ -537,6 +554,128 @@ def phase_hybrid(mps0, x_tr, y_tr, x_fresh) -> dict:
     return launched
 
 
+# ---- phase 7: the fused engine (K7) ---------------------------------------------
+
+def step_args(captured) -> tuple:
+    """K7's inputs at the captured flagship step: K2's, with the right site
+    as (M, D, M) and no Omega (K7 draws its own, the same one)."""
+    (lab, a2m, x1, x2, l_env, r_env, y1h, f, _, lr, wd), _ = captured["k2"]
+    return lab, a2m.reshape(M, D, M), x1, x2, l_env, r_env, y1h, f, lr, wd
+
+
+def random_step_args(Lb, m, b, gen) -> tuple:
+    """K7's inputs at another shape: embedded pixels, a label core and a
+    site scaled like a product state's, targets one-hot, lr 0.5 so that the
+    L1 clip fires and a growth cap bites."""
+    r = lambda *s: torch.randn(s, generator=gen).to(DEVICE)  # noqa: E731
+    px = torch.rand((b, 2), generator=gen)
+    phi = torch.stack([torch.sin(np.pi * px / 2), torch.cos(np.pi * px / 2)], dim=-1).to(DEVICE)
+    y1h = torch.eye(Lb)[torch.randint(0, Lb, (b,), generator=gen)].T.contiguous().to(DEVICE)
+    return (r(Lb, m * D, m) / np.sqrt(m), r(m, D, m) / np.sqrt(m), phi[:, 0].contiguous(),
+            phi[:, 1].contiguous(), r(b, m), r(b, m), y1h, 0.3 * r(Lb, b), 0.5, WD)
+
+
+def compare_step(name, args, kw) -> float:
+    """K7 vs its plain version: f_new and the metrics to K2_TOL of their max,
+    Q (a_left over its renormalisation) by K1's projector and isometry
+    limits, a_left . lab_new (= Q R per label) to K1_REC_TOL of the plain
+    one's max, lenv_new against left @ a_left from the kernel's own a_left
+    to K2_TOL. The renormalisation factor gg cancels from all of these, so it
+    is held on its own, gauge-free: the largest column norm of a_left (gg;
+    1 without renorm_envs) to K2_TOL relative to the plain one's (a scalar
+    reduction), and the row norms of lenv_new (gg |Q^T left[b]|) to
+    K1_REC_TOL of their max, as Q R (float32 against float64 on the CPU at
+    the card test's shapes: <= 5e-7 and <= 5e-6, tests/torch_fused_spread.py).
+    Returns the
+    largest absolute difference over the outputs."""
+    got = step_kernel.two_site_step(*args, **kw)
+    torch.cuda.synchronize()
+    want = step_kernel.two_site_step_reference(*args, **kw)
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{name}: K7 output {tuple(a.shape)} not finite or wrong shape")
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))  # noqa: E731
+    lab, _, x1, _, lenv = args[:5]
+    left = (lenv[:, :, None] * x1[:, None, :]).reshape(x1.shape[0], lab.shape[1])
+    e_f, e_m, e_env = rel(got[3], want[3]), rel(got[4], want[4]), rel(got[2], left @ got[0])
+    q, qp = got[0].double(), want[0].double()
+    # a_left = gg Q with unit live columns
+    gg, gg_p = torch.linalg.vector_norm(q, dim=0).max(), torch.linalg.vector_norm(qp, dim=0).max()
+    e_gg = float(abs(gg / gg_p - 1))
+    e_rows = rel(torch.linalg.vector_norm(got[2].double(), dim=1),
+                 torch.linalg.vector_norm(want[2].double(), dim=1))
+    q, qp = q / gg, qp / gg_p
+    proj = float((q @ q.T - qp @ qp.T).abs().max())
+    live = torch.linalg.vector_norm(q, dim=0) > 0.5
+    iso = float((q[:, live].T @ q[:, live] - torch.eye(int(live.sum()), dtype=torch.float64,
+                                                       device=q.device)).abs().max())
+    qr = torch.einsum("im,omj->oij", got[0].double(), got[1].double())
+    qr_p = torch.einsum("im,omj->oij", want[0].double(), want[1].double())
+    rec = rel(qr, qr_p)
+    ok = (max(e_f, e_m, e_env, e_gg) <= K2_TOL and proj <= K1_PROJ_TOL and iso <= K1_ISO_TOL
+          and max(rec, e_rows) <= K1_REC_TOL)
+    path = ("resident" if polar_split._lib().tnml_polar_resident(lab.shape[1], lab.shape[2])
+            else "streaming")
+    print(f"[kernel] two_site_step {name} (K1 {path} path inside): f_new {e_f:.2g}, metrics "
+          f"{e_m:.2g}, lenv_new vs left a_left {e_env:.2g}, gg {float(gg):.6g} vs "
+          f"{float(gg_p):.6g} rel {e_gg:.2g} (tol {K2_TOL:g}); |lenv_new[b]| {e_rows:.2g} (tol "
+          f"{K1_REC_TOL:g}); |QQt-Q'Q't|={proj:.3g} "
+          f"(tol {K1_PROJ_TOL:g}) iso={iso:.3g} (tol {K1_ISO_TOL:g}) live={int(live.sum())}/"
+          f"{q.shape[1]}; |QR-Q'R'|/max|Q'R'|={rec:.3g} (tol {K1_REC_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: K7 disagrees with its plain version")
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def phase_step_kernels(captured) -> float:
+    args = step_args(captured)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    cases = [
+        (f"flagship step {CAPTURE_STEP}", args, {}),
+        (f"flagship step {CAPTURE_STEP}, growth_cap=1e-3, renorm_envs", args,
+         dict(growth_cap=1e-3, renorm_envs=True)),
+        ("ragged L=10 M=48 B=100", random_step_args(L, 48, 100, gen), {}),
+        ("M=256 B=64, growth_cap=1e-3", random_step_args(L, 256, 64, gen),
+         dict(growth_cap=1e-3)),
+    ]
+    return max(compare_step(name, a, dict(act_fn="linear", loss_fn="MSE", **kw))
+               for name, a, kw in cases)
+
+
+def phase_fused(mps0, x_tr, y_tr, x_fresh) -> dict:
+    xe = torch.as_tensor(x_tr[: FUSED_BATCHES * BATCH], device=DEVICE).reshape(
+        FUSED_BATCHES, BATCH, N)
+    ye = torch.as_tensor(y_tr[: FUSED_BATCHES * BATCH], device=DEVICE).reshape(
+        FUSED_BATCHES, BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mps, accs, _ = epoch_mod.fused_epoch(mps0, xe, ye, LR, WD, flagship_cfg("fused"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    want = FUSED_BATCHES * STEPS
+    if launched["two_site_step"] != want or any(
+            v for k, v in launched.items() if k != "two_site_step"):
+        fail(f"the fused epoch launched {launched} (want K7 {want} times, nothing else)")
+    if not (torch.isfinite(mps.sites).all() and torch.isfinite(mps.label_site).all()):
+        fail("the fused epoch left a non-finite model")
+    print(f"[fused] fused_epoch engine=fused, {FUSED_BATCHES} batches: {seconds:.2f} s; K7 "
+          f"launches {launched['two_site_step']} = {FUSED_BATCHES} x {STEPS}, K1 and K2 "
+          f"{launched['polar_iterate']} and {launched['two_site_presplit']}; batch accs "
+          f"{[round(float(a), 4) for a in accs]}")
+    kern = one_sweep(mps0, xe[0], ye[0], "fused")
+    if kern[2].dtype != torch.float32:
+        fail(f"the fused sweep's f_final is {kern[2].dtype}, not float32")
+    hold_sweeps("fused vs its plain version", kern,
+                one_sweep(mps0, xe[0], ye[0], "fused", plain=True), x_fresh)
+    hold_sweeps("fused vs xla", kern, one_sweep(mps0, xe[0], ye[0], "xla"), x_fresh)
+    return launched
+
+
+# ---- phases 8 and 9: the two-stage and the all-in-one polar splits -------------
+
 def phase_two_stage(captured) -> dict:
     """polar_split_two_stage, the entry point that runs K5 then K1, on the
     flagship step's two-site matrix, held against hybrid_polar_split with
@@ -553,12 +692,7 @@ def phase_two_stage(captured) -> dict:
     if q.shape != qh.shape or r.shape != rh.shape or not (torch.isfinite(q).all()
                                                            and torch.isfinite(r).all()):
         fail(f"polar_split_two_stage gave {tuple(q.shape)}, {tuple(r.shape)} or non-finite values")
-    q64, h64, b64 = q.double(), qh.double(), bmat.double()
-    proj = float((q64 @ q64.T - h64 @ h64.T).abs().max())
-    rec = float((q64 @ r.double() - h64 @ rh.double()).abs().max() / b64.abs().max())
-    live = torch.linalg.vector_norm(q64, dim=0) > 0.5
-    iso = float((q64[:, live].T @ q64[:, live] - torch.eye(int(live.sum()), dtype=torch.float64,
-                                                          device=q.device)).abs().max())
+    proj, rec, iso = split_agreement(bmat, q, r, qh, rh)
     ok = proj <= K1_PROJ_TOL and rec <= K1_REC_TOL and iso <= K1_ISO_TOL
     print(f"[two-stage] polar_split_two_stage I={bmat.shape[0]} J={bmat.shape[1]} q={M} "
           f"(flagship step {CAPTURE_STEP}): K5 launches 1, K1 launches 1; vs hybrid_polar_split "
@@ -568,8 +702,70 @@ def phase_two_stage(captured) -> dict:
         fail("polar_split_two_stage disagrees with hybrid_polar_split")
     return launched
 
+def split_agreement(bmat, q, r, qp, rp):
+    """Two polar splits of ``bmat``: |QQt - Q'Q't|, |QR - Q'R'| / max|B| and
+    the isometry of Q's live columns."""
+    q64, p64, b64 = q.double(), qp.double(), bmat.double()
+    proj = float((q64 @ q64.T - p64 @ p64.T).abs().max())
+    rec = float((q64 @ r.double() - p64 @ rp.double()).abs().max() / b64.abs().max())
+    live = torch.linalg.vector_norm(q64, dim=0) > 0.5
+    iso = float((q64[:, live].T @ q64[:, live] - torch.eye(int(live.sum()), dtype=torch.float64,
+                                                          device=q.device)).abs().max())
+    return proj, rec, iso
 
-# ---- phase 8: the rangefinder path (K6) -----------------------------------------
+
+def compare_polar_split(name, bmat, rank, n_power) -> float:
+    q, r = polar_split.polar_split(bmat, rank, n_power=n_power)
+    torch.cuda.synchronize()
+    qp, rp = polar_split.polar_split_reference(bmat, rank, n_power=n_power)
+    if q.shape != qp.shape or r.shape != rp.shape or not (torch.isfinite(q).all()
+                                                           and torch.isfinite(r).all()):
+        fail(f"{name}: K8 gave {tuple(q.shape)}, {tuple(r.shape)} or non-finite values")
+    proj, rec, iso = split_agreement(bmat, q, r, qp, rp)
+    ok = proj <= K1_PROJ_TOL and rec <= K1_REC_TOL and iso <= K1_ISO_TOL
+    I, J = bmat.shape
+    path = "resident" if polar_split._lib().tnml_polar_resident(I, min(rank, I)) else "streaming"
+    print(f"[kernel] polar_split {name} I={I} J={J} rank={rank} n_power={n_power} (K1 {path} "
+          f"path inside, Omega at J + {polar_split._tile_j(I, J)[2]}): |QQt-Q'Q't|={proj:.3g} "
+          f"(tol {K1_PROJ_TOL:g}) |QR-Q'R'|/max|B|={rec:.3g} (tol {K1_REC_TOL:g}) iso={iso:.3g} "
+          f"(tol {K1_ISO_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: K8 disagrees with its plain version")
+    return max(float((q - qp).abs().max()), float((r - rp).abs().max()))
+
+
+def phase_polar_split_kernels(captured) -> float:
+    gen = torch.Generator().manual_seed(SEED + 9)
+    return max(compare_polar_split(f"flagship step {CAPTURE_STEP}", captured["bmat"], M, 1),
+               compare_polar_split("padded", gapped(96, 300, 48, gen).float().to(DEVICE), 48, 2))
+
+
+def phase_polar_split(captured) -> dict:
+    """polar_split (K8), an entry point no sweep reaches, once on the flagship
+    step's two-site matrix, held against polar_split_two_stage and
+    hybrid_polar_split by the projector (the same Omega: J needs no pad)."""
+    bmat = captured["bmat"]
+    reset_counts()
+    q, r = polar_split.polar_split(bmat, M)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["polar_split"] != 1 or any(v for k, v in launched.items() if k != "polar_split"):
+        fail(f"polar_split launched {launched} (want K8 once, nothing else)")
+    parts = []
+    for what, split in (("polar_split_two_stage", polar_split.polar_split_two_stage),
+                        ("hybrid_polar_split", polar_split.hybrid_polar_split)):
+        qo, ro = split(bmat, M)
+        proj, rec, iso = split_agreement(bmat, q, r, qo, ro)
+        if proj > K1_PROJ_TOL:
+            fail(f"polar_split and {what} differ: |QQt-Q'Q't| = {proj:.3g}")
+        parts.append(f"vs {what} |QQt-Q'Q't|={proj:.3g} |QR-Q'R'|/max|B|={rec:.3g}")
+    print(f"[all-in-one] polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={M} (flagship step "
+          f"{CAPTURE_STEP}): K8 launches 1; " + "; ".join(parts) + f" (tol {K1_PROJ_TOL:g} on "
+          f"the projector); isometry {iso:.3g} ok")
+    return launched
+
+
+# ---- phase 10: the rangefinder path (K6) -----------------------------------------
 
 def rf_cfg() -> SweepConfig:
     return flagship_cfg("xla")._replace(svd_method="rangefinder")
@@ -812,7 +1008,7 @@ def phase_small_splits() -> None:
         fail("a small-I split is off the exact split, or launched a kernel")
 
 
-# ---- phase 9: the large-bond path (M=512) -------------------------------------
+# ---- phase 11: the large-bond path (M=512) -------------------------------------
 
 def large_cfg(factored: str) -> SweepConfig:
     return flagship_cfg("xla")._replace(factored_update=factored)
@@ -1038,7 +1234,7 @@ def phase_large_sweep(mps0, xb, yb, x_fresh, y_fresh) -> dict:
     return launched
 
 
-# ---- phase 10: timing ---------------------------------------------------------
+# ---- phase 12: timing ---------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 20) -> float:
     fn()
@@ -1091,8 +1287,29 @@ def polar_work(I, q, n_loop, n_final, n_power=1):
     return flops, 4.0 * (2 * I * q + I * I)
 
 
+def step_work(Lb, m, b, pe):
+    """FLOPs and bytes of K7 at L=Lb, M=m, B=b: K2's pre-split, K1's
+    iteration with the schedules' pass counts ``pe``, Q^T bn and left Q; the
+    inputs (Omega and lr, wd included) read once, the outputs written once."""
+    I = JC = m * D
+    flops = (presplit_work(Lb, I, m, JC, b, m)[0] + polar_work(I, m, *pe)[0]
+             + 2.0 * Lb * m * I * JC + 2.0 * b * I * m)
+    nbytes = 4.0 * (Lb * I * m + m * JC + 2 * b * D + 2 * b * m + 2 * Lb * b + Lb * JC * m + 2
+                    + I * m + Lb * m * JC + b * m + Lb * b + 4)
+    return flops, nbytes
+
+
+def polar_split_work(I, J, q, pe, n_power=1):
+    """FLOPs and bytes of K8: K5's y, G and n2, then K1's iteration; B and
+    Omega read once, Q written once (R is a product outside the kernel)."""
+    flops = sketch_work(I, J, q, True)[0] + polar_work(I, q, *pe, n_power=n_power)[0]
+    return flops, 4.0 * (I * J + J * q + I * q)
+
+
 def presplit_work(Lb, I, Mk, DM, B, q):
-    flops = 2.0 * Lb * I * DM * (Mk + B + I + q + B)
+    """FLOPs and bytes of K2: the merge, the gradient, f, y and G (one
+    triangle) over the Lb label blocks."""
+    flops = 2.0 * Lb * I * DM * (Mk + B + q + B) + gram_flops(I, Lb * DM)
     nbytes = 4.0 * (Lb * I * Mk + Mk * DM + 2 * B * D + 2 * B * Mk + 2 * Lb * B
                     + Lb * DM * q + 2  # inputs, lr and wd included
                     + Lb * I * DM + I * q + I * I + Lb * B + B * I + 8)  # outputs
@@ -1146,7 +1363,13 @@ PROFILE_KERNELS = {
     "K1": ("polar_resident_kernel", "polar_streaming_kernel"),
     "K2": ("grad_kernel", "update_kernel", "reduce_kernel", "finish_kernel"),
     "K4/K5": ("sketch_tile_kernel", "sketch_finish_kernel", "sketch_bt_kernel"),
+    # K7's own launches; its other six share K2's and K1's names, and K8's
+    # launches are K5's and K1's (one source of device code for each)
+    "K7": ("step_product_kernel", "step_scale_kernel"),
 }
+
+# a fused sweep, where no K1 or K2 runs: every launch of these names is K7's
+FUSED_PROFILE = {"K7": PROFILE_KERNELS["K2"] + PROFILE_KERNELS["K1"] + PROFILE_KERNELS["K7"]}
 
 
 # K6's launches; its tile pass shares K4/K5's name, so a rangefinder sweep's
@@ -1180,11 +1403,17 @@ def summarise_profile(engine, prof, wall_ms, groups=PROFILE_KERNELS) -> None:
           + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
 
 
+def gram_flops(I, J):
+    """FLOPs of G = B B^T for B (I, J): one triangle and the diagonal, since G
+    is symmetric."""
+    return 1.0 * I * (I + 1) * J
+
+
 def sketch_work(I, J, q, gram):
     """FLOPs and bytes of K4a (gram=False) or K5 (gram=True): B read once,
     Omega read once, y, n2 (and G) written once; the squares of n2 count as
-    one FMA per element of B."""
-    flops = 2.0 * I * J * q + 2.0 * I * J + (2.0 * I * I * J if gram else 0.0)
+    one FMA per element of B, G as one triangle."""
+    flops = 2.0 * I * J * q + 2.0 * I * J + (gram_flops(I, J) if gram else 0.0)
     return flops, 4.0 * (I * J + J * q + I * q + 1 + (I * I if gram else 0))
 
 
@@ -1196,9 +1425,10 @@ def rf_work(I, J, q, rank, n_iter=6):
     """FLOPs and bytes of K6: the sketch, the Gram and |B|^2; n_iter products
     with G; n_iter + 1 column normalisations and Householder passes (each
     reflector's dot products and updates, forward and back: 8 (I-j)(q-j)
-    at step j); R = Q^T B. B and Omega read once, Q and R written once."""
+    at step j); R = Q^T B. G counts as one triangle. B and Omega read once,
+    Q and R written once."""
     hqr = sum(8.0 * (I - j) * (q - j) for j in range(q))
-    flops = (2.0 * I * J * q + 2.0 * I * I * J + 2.0 * I * J + n_iter * 2.0 * I * I * q
+    flops = (2.0 * I * J * q + gram_flops(I, J) + 2.0 * I * J + n_iter * 2.0 * I * I * q
              + (n_iter + 1) * (hqr + 3.0 * I * q) + 2.0 * rank * I * J)
     return flops, 4.0 * (I * J + J * q + I * rank + rank * J)
 
@@ -1300,11 +1530,31 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
     ms["polar_iterate"] = turns(
         f"polar_iterate I={M * D} q={M}", lambda: polar_split.polar_iterate(y0, g, n2),
         lambda: polar_split.polar_iterate_reference(y0, g, n2), reps=10)
+    sargs = step_args(captured)
+    ms["two_site_step"] = turns(
+        f"two_site_step L={L} M={M} B={BATCH}", lambda: step_kernel.two_site_step(*sargs),
+        lambda: step_kernel.two_site_step_reference(*sargs), reps=10)
+    bmat = captured["bmat"]
+    ms["polar_split"] = turns(
+        f"polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={M}",
+        lambda: polar_split.polar_split(bmat, M),
+        lambda: polar_split.polar_split_reference(bmat, M), reps=10)
+
+    def hybrid_step():  # what the hybrid engine runs per step: K2, K1, two products
+        bnew, y, gr, _, left_part, stats = presplit_kernel.two_site_presplit(*args, **kwargs)
+        qf = polar_split.polar_iterate(y, gr, stats[0, 2].reshape(1, 1))
+        return qf.T @ bnew, left_part @ qf
+
+    ctx = [cuda_ms(hybrid_step, 10),
+           cuda_ms(lambda: polar_split.polar_split_two_stage(bmat, M), 10)]
+    print(f"[context] the hybrid engine's step (K2, K1, R and the left environment as two "
+          f"products) {ctx[0] * 1e3:.1f} us beside K7; polar_split_two_stage (K5, K1 and R) "
+          f"{ctx[1] * 1e3:.1f} us beside K8 (context, not yardsticks)")
 
     xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
     yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
     sweep_ms = {}
-    for engine in ("xla", "hybrid", "hybrid", "xla"):
+    for engine in ("xla", "hybrid", "fused", "fused", "hybrid", "xla"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one_sweep(mps, xb, yb, engine)
@@ -1314,9 +1564,10 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
         print(f"[timing] sweep engine={engine} (polar split): {v[0]:.1f} / {v[1]:.1f} ms, "
               f"{BATCH / (sum(v) / 2) * 1e3:.0f} samples/s")
     ms["sweep"] = {k: sum(v) / 2 for k, v in sweep_ms.items()}
-    for engine in ("xla", "hybrid"):
+    for engine in ("xla", "hybrid", "fused"):
         summarise_profile(engine, device_time_table(lambda: one_sweep(mps, xb, yb, engine)),
-                          ms["sweep"][engine])
+                          ms["sweep"][engine],
+                          groups=FUSED_PROFILE if engine == "fused" else PROFILE_KERNELS)
 
     for B in (BATCH, BIG):
         for use_kernel in (True, False):
@@ -1351,7 +1602,11 @@ def main() -> None:
     launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
                                                            x_fresh)
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
+    errs["two_site_step"] = phase_step_kernels(captured)
+    launches["two_site_step"] = phase_fused(mps, x_tr, y_tr, x_fresh)["two_site_step"]
     launches["polar_sketch_gram"] = phase_two_stage(captured)["polar_sketch_gram"]
+    errs["polar_split"] = phase_polar_split_kernels(captured)
+    launches["polar_split"] = phase_polar_split(captured)["polar_split"]
     xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
     yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
 
@@ -1388,6 +1643,8 @@ def main() -> None:
         "gramfree_gmul": gmul_work(I_big, J_big, M_LARGE),
         "polar_sketch_gram": sketch_work(M * D, L * D * M, M, True),
         "rangefinder_split": rf_work(M * D, L * D * M, min(M + 8, M * D), M),
+        "two_site_step": step_work(L, M, BATCH, pe),
+        "polar_split": polar_split_work(M * D, L * D * M, M, pe),
     }
     for name, (flops, nbytes) in list(work.items()) + [
             ("right_env_chain B=8192", chain_work(N - 1, M, BIG)),
@@ -1411,6 +1668,10 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:551", "polar_sketch_gram"),
         ("rangefinder_split", "rangefinder_split.cu",
          "tensornetworkforml_tpu/ops/kernels/split_kernel.py:157", "rangefinder_split"),
+        ("two_site_step", "two_site_step.cu",
+         "tensornetworkforml_tpu/ops/kernels/step_kernel.py:85", "two_site_step"),
+        ("polar_split", "polar_iterate.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:192", "polar_split"),
     ):
         b_ms, b_by = bound_ms(*work[name])
         rows.append({
@@ -1424,7 +1685,8 @@ def main() -> None:
             "plain_ms": ms[key][1],
             "bound_ms": b_ms,
             "bound_by": b_by,
-            # K1, K2, K3 and K6: no single PyTorch call computes what they compute
+            # K1, K2, K3, K6, K7 and K8: no single PyTorch call computes what
+            # they compute
             "library_ms": ms[key][2],
         })
     print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "

@@ -27,8 +27,8 @@
 //                         B. K5 adds the tiles of G's upper triangle and
 //                         writes each off-diagonal tile twice (G and its
 //                         mirror): 136 instead of 256 tiles at I = 1024.
-//   sketch_finish_kernel  adds the S partial tiles in split order, and the n2
-//                         partials in a fixed tree order.
+//   sketch_finish_kernel  (sketch_gram.cuh) adds the S partial tiles in split
+//                         order, and the n2 partials in a fixed tree order.
 //   sketch_bt_kernel      K4b's first half, t = B^T y1 (J, q) with k = I; t
 //                         goes to scratch (21 MB at M = 512, mostly held in
 //                         L2), and the second half z = B t is
@@ -37,35 +37,9 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "sketch_gram.cuh"
 
 namespace {
-
-__global__ void __launch_bounds__(NT) sketch_finish_kernel(Args a) {
-  __shared__ float red[NT];
-  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
-  if (a.S > 1) {
-    const size_t Iq = (size_t)a.I * a.q, II = (size_t)a.I * a.I;
-    if (e < Iq) {
-      float v = 0.f;
-      for (int p = 0; p < a.S; ++p) v += a.yp[p * Iq + e];
-      a.y[e] = v;
-    }
-    if (a.g != nullptr && e < II) {
-      float v = 0.f;
-      for (int p = 0; p < a.S; ++p) v += a.gp[p * II + e];
-      a.g[e] = v;
-    }
-  }
-  if (a.n2 != nullptr && blockIdx.x == 0) {
-    float v = 0.f;
-    for (int p = threadIdx.x; p < a.S * a.nI; p += NT) v += a.n2p[p];
-    v = block_sum<NT>(v, red);
-    if (threadIdx.x == 0) *a.n2 = v;
-  }
-}
 
 // t = B^T y1: (J, q), k = I
 __global__ void __launch_bounds__(NT) sketch_bt_kernel(const float* __restrict__ b,
@@ -86,19 +60,6 @@ __global__ void __launch_bounds__(NT) sketch_bt_kernel(const float* __restrict__
       const int m = jt * T + ty * 4 + i, n = qt * T + tx * 4 + j;
       if (m < J && n < q) t[(size_t)m * q + n] = acc[i][j];
     }
-}
-
-int launch_sketch(Args& a, float* scratch, cudaStream_t stream) {
-  a.n2p = scratch;
-  a.yp = a.n2p + (size_t)a.S * a.nI;
-  a.gp = a.yp + (a.S > 1 ? (size_t)a.S * a.I * a.q : 0);
-  sketch_tile_kernel<<<dim3(a.jobs_y + a.jobs_g, a.S), NT, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (a.S == 1 && a.n2 == nullptr) return 0;
-  const long n_out = std::max((long)a.I * a.q, a.g != nullptr ? (long)a.I * a.I : 0L);
-  sketch_finish_kernel<<<a.S > 1 ? cdiv(n_out, NT) : 1, NT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

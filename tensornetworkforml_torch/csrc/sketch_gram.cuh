@@ -3,7 +3,9 @@
 // sums of |B|_F^2, as output tiles of 64 x 64 whose k range (the J axis) is
 // split over S blocks when the tiles alone cannot fill the card. With S > 1
 // the blocks write partial tiles, which the including kernel adds in split
-// order. polar_sketch.cu (K4a, K4b, K5) and rangefinder_split.cu (K6) use it.
+// order (sketch_finish_kernel, launched with it by launch_sketch).
+// polar_sketch.cu (K4a, K4b, K5), rangefinder_split.cu (K6, its tile pass
+// only) and polar_iterate.cu (K8's first stage) use it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -125,6 +127,48 @@ long partial_floats(const Args& a) {
   long n = (long)a.S * a.nI;
   if (a.S > 1) n += (long)a.S * a.I * a.q + (a.jobs_g ? (long)a.S * a.I * a.I : 0L);
   return n;
+}
+
+// adds the S partial tiles of y (and G) in split order, and the n2 partials
+// in a fixed tree order
+__global__ void __launch_bounds__(NT) sketch_finish_kernel(Args a) {
+  __shared__ float red[NT];
+  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (a.S > 1) {
+    const size_t Iq = (size_t)a.I * a.q, II = (size_t)a.I * a.I;
+    if (e < Iq) {
+      float v = 0.f;
+      for (int p = 0; p < a.S; ++p) v += a.yp[p * Iq + e];
+      a.y[e] = v;
+    }
+    if (a.g != nullptr && e < II) {
+      float v = 0.f;
+      for (int p = 0; p < a.S; ++p) v += a.gp[p * II + e];
+      a.g[e] = v;
+    }
+  }
+  if (a.n2 != nullptr && blockIdx.x == 0) {
+    float v = 0.f;
+    for (int p = threadIdx.x; p < a.S * a.nI; p += NT) v += a.n2p[p];
+    v = block_sum<NT>(v, red);
+    if (threadIdx.x == 0) *a.n2 = v;
+  }
+}
+
+// the tile pass and, where the J range is split or n2 is wanted, the fixed-order
+// sum; `a` is planned and its inputs and outputs set, `scratch` holds
+// partial_floats(a)
+int launch_sketch(Args& a, float* scratch, cudaStream_t stream) {
+  a.n2p = scratch;
+  a.yp = a.n2p + (size_t)a.S * a.nI;
+  a.gp = a.yp + (a.S > 1 ? (size_t)a.S * a.I * a.q : 0);
+  sketch_tile_kernel<<<dim3(a.jobs_y + a.jobs_g, a.S), NT, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (a.S == 1 && a.n2 == nullptr) return 0;
+  const long n_out = std::max((long)a.I * a.q, a.g != nullptr ? (long)a.I * a.I : 0L);
+  sketch_finish_kernel<<<a.S > 1 ? cdiv(n_out, NT) : 1, NT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-"""The polar Newton-Schulz splits and their kernels (K1, K4a, K4b, K5).
+"""The polar Newton-Schulz splits and their kernels (K1, K4a, K4b, K5, K8).
 
 ``hybrid_polar_split`` is the canonical split of ``svd_method="polar"`` up
 to I = 768 rows: plain matrix products for the sketch ``Y0 = B Omega``, the
@@ -28,6 +28,14 @@ as plain products in between. ``polar_split_two_stage`` is the split as
 ``polar_sketch_gram`` (K5: ``y``, ``G`` and ``n2`` in one pass over B)
 followed by K1. The three reductions are ``csrc/polar_sketch.cu`` on a card
 and their ``*_reference`` plain versions on the CPU.
+
+``polar_split`` is the all-in-one split (K8, the counterpart of the JAX
+package's ``polar_split_pallas``): the sketch, the Gram and ``n2`` in one pass
+over B, then ``n_power`` rounds of the iteration, as one C entry on a card
+(``tnml_polar_split`` in ``csrc/polar_iterate.cu``: K5's tile pass, then K1's
+launch), and ``polar_split_reference`` on the CPU;
+``R = Q^T B`` is a plain float32 product. No sweep reaches it; its split is the
+one inside K7 (``ops/kernels/step_kernel.py``, ``engine="fused"``).
 """
 
 from __future__ import annotations
@@ -530,3 +538,123 @@ def polar_split_two_stage(
     y, g, n2 = polar_sketch_gram(b32, om)
     q = polar_iterate(y, g, n2, n_power, loop_coeffs, final_coeffs, dead_tol)
     return _canonical_factors(q, rank, b32, out_dtype)
+
+
+# ---- the all-in-one split: K8 -------------------------------------------------
+
+def _tile_j(I: int, J: int, max_bytes: int = 2 ** 21):
+    """The JAX package's J-tiling of ``polar_split_pallas``: ``(nc, tj, pad)``
+    with ``nc * tj = J + pad``, chunks a multiple of 128 columns, at most 2048
+    and at most ``max_bytes`` of float32 per ``(I, tj)`` block. The tiling
+    itself was a Mosaic limit; here it decides only ``pad``, the extra rows
+    at which Omega is drawn (of which the split uses the first J)."""
+    tj_cap = min(2048, max(128, 128 * ((max_bytes // 4 // max(I, 1)) // 128)))
+    nc = max(1, -(-J // tj_cap))
+    tj = 128 * (-(-J // (nc * 128)))
+    return nc, tj, nc * tj - J
+
+
+def _split_inputs(bmat: torch.Tensor, rank: int):
+    """What both versions of the split take: ``(b32, om (J, q_cols),
+    q_cols, dead_tol)``, Omega drawn at the padded length of the JAX tiling
+    through ``ops.svd.rangefinder_omega``."""
+    I, J = bmat.shape
+    q_cols = min(rank, I)
+    dead_tol = 1e-6 if bmat.dtype != torch.float64 else 1e-12
+    b32 = bmat.to(torch.float32)
+    pad = _tile_j(I, J)[2]
+    om = _svd.rangefinder_omega(J + pad, q_cols, torch.float32, bmat.device)[:J]
+    return b32, om, q_cols, dead_tol
+
+
+def polar_split_reference(
+    bmat: torch.Tensor,
+    rank: int,
+    n_power: int = 1,
+    loop_coeffs: tuple = None,
+    final_coeffs: tuple = None,
+):
+    """Plain version of ``polar_split``; any device."""
+    out_dtype = bmat.dtype
+    b32, om, _, dead_tol = _split_inputs(bmat, rank)
+    n2 = (b32 * b32).sum()
+    q = polar_iterate_reference(b32 @ om, b32 @ b32.T, n2, n_power, loop_coeffs, final_coeffs,
+                                dead_tol)
+    return _canonical_factors(q, rank, b32, out_dtype)
+
+
+def _split_lib() -> ctypes.CDLL:
+    """K8's entry, which lives in K1's library (``csrc/polar_iterate.cu``)."""
+    lib = _lib()
+    fn = lib.tnml_polar_split
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # b, om, q_out, scratch; I, J, q, n_power; the schedules; dead_tol, stream
+        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.POINTER(_Coeffs),
+                       ctypes.POINTER(_Coeffs), ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        lib.tnml_polar_split_scratch_floats.argtypes = [i, i, i]
+        lib.tnml_polar_split_scratch_floats.restype = ctypes.c_long
+    return lib
+
+
+def polar_split(
+    bmat: torch.Tensor,
+    rank: int,
+    n_power: int = 1,
+    loop_coeffs: tuple = None,
+    final_coeffs: tuple = None,
+):
+    """Canonical split ``bmat (I, J) -> (Q (I, rank) isometric, R = Q^T B)``,
+    the all-in-one polar split (K8):
+
+        y, G, n2 = B Omega, B B^T, |B|_F^2        (n2 accumulated, not tr G)
+        G <- G / n2;  n_power times: y = G polar_ns(colnorm(y), loop schedule)
+        Q = polar_ns(colnorm(y), final schedule);  R = Q^T B
+
+    Omega is ``ops.svd.rangefinder_omega(J + pad, q_cols)[:J]`` with ``pad``
+    from the JAX package's J-tiling, ``q_cols = min(rank, I)``, and Q is padded
+    with zero columns up to ``rank``. ``dead_tol`` is 1e-6 (1e-12 for float64
+    input); the split runs in float32 and returns the input's dtype.
+
+    CPU tensors run ``polar_split_reference``. CUDA tensors must be float32 and
+    contiguous and launch the kernel (the sketch and Gram pass, then the
+    iteration); each launch adds one to ``polar_split.launches``.
+    """
+    if bmat.device.type == "cpu":
+        return polar_split_reference(bmat, rank, n_power, loop_coeffs, final_coeffs)
+    if bmat.device.type != "cuda":
+        raise ValueError(f"polar_split takes a CPU or a CUDA tensor, got {bmat.device}")
+    if bmat.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32, got {bmat.dtype}")
+    if bmat.dim() != 2 or 0 in bmat.shape or rank < 1:
+        raise ValueError(f"polar_split takes a non-empty (I, J) matrix and rank >= 1, got "
+                         f"{tuple(bmat.shape)}, rank {rank}")
+    if not bmat.is_contiguous():
+        raise ValueError("polar_split takes a contiguous matrix")
+    if n_power < 0:
+        raise ValueError(f"n_power must be >= 0, got {n_power}")
+    loop_coeffs, final_coeffs = _schedules(loop_coeffs, final_coeffs)
+    loop_block, final_block = _coeff_block(loop_coeffs), _coeff_block(final_coeffs)
+    b32, om, q_cols, dead_tol = _split_inputs(bmat, rank)
+    om = om.contiguous()
+    I, J = bmat.shape
+    q = torch.empty((I, q_cols), dtype=torch.float32, device=bmat.device)
+    lib = _split_lib()
+    scratch = _scratch(lib.tnml_polar_split_scratch_floats(I, J, q_cols), bmat)
+    with torch.cuda.device(bmat.device):
+        err = lib.tnml_polar_split(
+            b32.data_ptr(), om.data_ptr(), q.data_ptr(), scratch.data_ptr(), I, J, q_cols,
+            int(n_power), ctypes.byref(loop_block), ctypes.byref(final_block), float(dead_tol),
+            torch.cuda.current_stream(bmat.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"polar_split kernel failed: cudaError {err} "
+            f"({lib.tnml_cuda_error_string(err).decode()})"
+        )
+    polar_split.launches += 1
+    return _canonical_factors(q, rank, b32, bmat.dtype)
+
+
+polar_split.launches = 0

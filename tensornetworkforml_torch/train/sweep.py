@@ -24,11 +24,12 @@ plain tensor operations plus the configured split (every ``svd_method`` of
 subspace iteration is kernel K1 up to I = M*D = 768 rows, and above it the
 split is gram-free with kernels K4a and K4b; with ``"rangefinder"`` the whole
 split is kernel K6 from I = 128 rows (M >= 64 at D = 2); ``"hybrid"`` runs
-kernel K2 (``two_site_presplit``) and then K1 on every step. The factored large-bond update (``train/factored_step.py``) takes a
-step of the xla engine where the JAX package's rule sends it there
-(``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for a canonical
-fixed-rank polar split with no L2); it runs no kernel. ``engine="fused"``
-(K7) and ``dist_split`` are not ported yet and raise
+kernel K2 (``two_site_presplit``) and then K1 on every step; ``"fused"`` runs
+the whole step as kernel K7 (``two_site_step``), at every bond. The factored
+large-bond update (``train/factored_step.py``) takes a step of the xla engine
+where the JAX package's rule sends it there (``factored_update="on"``, or
+``"auto"`` at ``M*D > 512``, for a canonical fixed-rank polar split with no
+L2); it runs no kernel. ``dist_split`` is not ported yet and raises
 ``NotImplementedError``.
 
 ``matmul_precision``: every product of the port runs in full float32 (TF32
@@ -57,6 +58,11 @@ from tensornetworkforml_torch.ops.contractions import (
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels.polar_split import polar_iterate
 from tensornetworkforml_torch.ops.kernels.presplit_kernel import two_site_presplit
+from tensornetworkforml_torch.ops.kernels.step_kernel import (
+    label_from_kernel_layout,
+    label_to_kernel_layout,
+    two_site_step,
+)
 from tensornetworkforml_torch.ops.svd import truncated_svd_split
 from tensornetworkforml_torch.train.factored_step import (
     factored_supported,
@@ -258,11 +264,30 @@ def _stack_metrics(steps: list) -> dict:
     return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
 
+def _f32_carry(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec):
+    """The kernel engines' float32 inputs, contiguous: the label core in carry
+    layout ``(L, M*D, M)``, the right sites ``(N-1, M, D, M)``, the site
+    inputs, the targets, the stale environments, the boundary left
+    environment, the batch output and the rates."""
+    f32, dev = torch.float32, sites.device
+    M, B = sites.shape[1], phi_t.shape[1]
+    return (
+        label_to_kernel_layout(label_site.to(f32)).contiguous(),
+        sites[1:].to(f32).contiguous(),
+        phi_t.to(f32).contiguous(),
+        y_onehot.to(f32).contiguous(),
+        r_envs.to(f32).contiguous(),
+        boundary_vector(M, dtype=f32, device=dev).expand(B, M).contiguous(),
+        f0.to(f32).contiguous(),
+        torch.as_tensor(lr, dtype=f32, device=dev).reshape(1),
+        torch.as_tensor(weight_dec, dtype=f32, device=dev).reshape(1),
+    )
+
+
 def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T, cfg):
     """The hybrid engine's sweep: K2, K1 and two plain products per step."""
     N, M, D, _ = sites.shape
     L = label_site.shape[2]
-    B = phi_t.shape[1]
     dtype, dev = sites.dtype, sites.device
     if cfg.L2_flag or cfg.split_mode != "canonical" or (
         cfg.rank_mode != "fixed" or cfg.update_mode != "clip" or cfg.dist_split != "none"
@@ -278,18 +303,10 @@ def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec
             "(VMEM block stacks); larger bonds use the streaming "
             "gramfree split on the xla engine"
         )
-    f32 = torch.float32
-    om = _svd.rangefinder_omega(L * D * M, M, f32, dev).reshape(L, D * M, M)
-    y1h = y_onehot.to(f32).contiguous()
-    lr32 = torch.as_tensor(lr, dtype=f32, device=dev).reshape(1)
-    wd32 = torch.as_tensor(weight_dec, dtype=f32, device=dev).reshape(1)
-    # (a,i,o,k) -> (o, (a,i), k): the carry layout
-    lab = label_site.to(f32).permute(2, 0, 1, 3).reshape(L, M * D, M).contiguous()
-    l_env = boundary_vector(M, dtype=f32, device=dev).expand(B, M).contiguous()
-    f = f0.to(f32).contiguous()
-    x = phi_t.to(f32).contiguous()
-    a2ms = sites[1:].to(f32).contiguous().reshape(N - 1, M, D * M)
-    r32 = r_envs.to(f32).contiguous()
+    om = _svd.rangefinder_omega(L * D * M, M, torch.float32, dev).reshape(L, D * M, M)
+    lab, a2s, x, y1h, r32, l_env, f, lr32, wd32 = _f32_carry(
+        sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec)
+    a2ms = a2s.reshape(N - 1, M, D * M)
 
     A_lefts, stats_rows = [], []
     for step in range(N - 1):
@@ -327,8 +344,53 @@ def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec
         "L2_loss": zeros,
         "sum_abs_L2_grad": zeros,
     }
-    label_final = lab.reshape(L, M, D, M).permute(1, 2, 0, 3).to(dtype)
+    label_final = label_from_kernel_layout(lab.reshape(L, M, D * M)).to(dtype)
     return torch.stack(A_lefts), label_final, f.to(dtype), metrics
+
+
+def _fused_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T, cfg):
+    """The fused engine's sweep: K7 (``two_site_step``) per step. The carry
+    is float32 and the final output ``f`` stays float32, as in the JAX
+    package."""
+    N, M, D, _ = sites.shape
+    L = label_site.shape[2]
+    dtype, dev = sites.dtype, sites.device
+    if cfg.L2_flag or cfg.split_mode != "canonical" or (
+        cfg.rank_mode != "fixed" or cfg.update_mode != "clip"
+    ):
+        raise ValueError(
+            "engine='fused' requires split_mode='canonical', "
+            "L2_flag=False, rank_mode='fixed', update_mode='clip'"
+        )
+    lab, a2s, x, y1h, r32, l_env, f, lr32, wd32 = _f32_carry(
+        sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec)
+
+    A_lefts, metr_rows, mean_abs_f = [], [], []
+    for step in range(N - 1):
+        a_left, lab_new, l_env, f_new, metr = two_site_step(
+            lab, a2s[step], x[step], x[step + 1], l_env, r32[step + 2], y1h, f, lr32, wd32,
+            act_fn=cfg.act_fn, loss_fn=cfg.loss_fn, T=T, renorm_envs=cfg.renorm_envs,
+            growth_cap=cfg.growth_cap,
+        )
+        mean_abs_f.append(f.abs().mean())
+        # (L, M, D*M) -> (L, M*D, M): the same memory
+        lab, f = lab_new.reshape(L, M * D, M), f_new
+        A_lefts.append(a_left.reshape(M, D, M).to(dtype))
+        metr_rows.append(metr)
+
+    metr = torch.cat(metr_rows).to(dtype)  # (N-1, 4)
+    zeros = torch.zeros((N - 1,), dtype=dtype, device=dev)
+    metrics = {
+        "accuracy": metr[:, 0],
+        "MAE": metr[:, 1],
+        "sum_abs_B": metr[:, 2],
+        "sum_abs_deltaB": metr[:, 3],
+        "mean_abs_f": torch.stack(mean_abs_f),
+        "L2_loss": zeros,
+        "sum_abs_L2_grad": zeros,
+    }
+    label_final = label_from_kernel_layout(lab.reshape(L, M, D * M)).to(dtype)
+    return torch.stack(A_lefts), label_final, f, metrics
 
 
 def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg):
@@ -344,12 +406,7 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
             f"product in full float32 ({', '.join(_FULL_F32)}); reduced "
             "precision (TF32 or 3xTF32) is an open decision (ROADMAP queue 1 item 9)"
         )
-    if cfg.engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' needs the whole-step kernel K7, which is not "
-            "ported yet (ROADMAP queue 2)"
-        )
-    if cfg.engine not in ("xla", "hybrid"):
+    if cfg.engine not in ("xla", "hybrid", "fused"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     e0 = boundary_vector(M, dtype=dtype, device=dev)
 
@@ -358,8 +415,9 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
     r_envs = right_env_stack_fused(sites, phi_t, e0)  # (N+1, B, M)
     f0 = chain_scores(e0.expand(B, M), label_site, phi[:, 0, :], r_envs[1])
 
-    if cfg.engine == "hybrid":
-        A_lefts, label_final, f_final, metrics = _hybrid_sweep(
+    if cfg.engine in ("hybrid", "fused"):
+        engine_sweep = _hybrid_sweep if cfg.engine == "hybrid" else _fused_sweep
+        A_lefts, label_final, f_final, metrics = engine_sweep(
             sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T, cfg
         )
     else:

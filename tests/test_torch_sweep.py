@@ -271,7 +271,6 @@ def test_step_metrics_off_gives_zeros():
 # ---- what is not ported, and the hybrid engine's own limits ---------------
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(engine="fused"), "K7"),
     (dict(dist_split="cholqr"), "queue 1 item 11"),
     (dict(matmul_precision="tensorfloat32"), "full float32"),
 ])
@@ -279,6 +278,16 @@ def test_unported_configurations_raise_naming_their_item(kw, match):
     _, t, x, y = _models(N=6, M=4, L=2, B=8, dtype="float32")
     cfg = tsw.SweepConfig(**{**_polar("xla"), **kw})
     with pytest.raises(NotImplementedError, match=match):
+        tsw.sweep_once(t, psi_embed(torch.as_tensor(x, dtype=torch.float32)),
+                       torch.as_tensor(np.eye(2, dtype=np.float32)[y].T), 0.05, 0.0, cfg)
+
+
+def test_fused_engine_rejects_l2_naming_the_engine():
+    """engine="fused" (K7) is ported; like the JAX package's, it rejects the
+    exact L2 term with a ValueError that names the engine."""
+    _, t, x, y = _models(N=6, M=4, L=2, B=8, dtype="float32")
+    cfg = tsw.SweepConfig(**{**_polar("fused"), "L2_flag": True})
+    with pytest.raises(ValueError, match="engine='fused' requires"):
         tsw.sweep_once(t, psi_embed(torch.as_tensor(x, dtype=torch.float32)),
                        torch.as_tensor(np.eye(2, dtype=np.float32)[y].T), 0.05, 0.0, cfg)
 
