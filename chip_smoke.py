@@ -12,6 +12,8 @@ phase trains the same model at M=512. Phases:
   1. device  -- the card, as nvidia-smi reports its name and power limit;
   2. build   -- compile every CUDA kernel from csrc/ (one nvcc per source,
                 all started together) and print ptxas's report for each;
+                K4a and K4b's library must hold tf32 warpgroup products
+                (HGMMA) in its SASS;
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 K3 (chain) at the serving shapes, K2 (pre-split step) and K1
                 (polar iteration) on the inputs of a mid-chain step of the
@@ -25,7 +27,13 @@ phase trains the same model at M=512. Phases:
                 versions swapped in;
   6. hybrid  -- fused_epoch with engine="hybrid" on 2 batches: K2 and K1 must
                 each launch 2 x 195 times; the first sweep is held against
-                the xla-engine polar sweep;
+                the xla-engine polar sweep; at M=256, above the JAX package's
+                M*D <= 256 cap, K2 (I = 512) and K1 (its L2-streaming form)
+                against their plain versions on a mid-chain step's inputs,
+                then one hybrid sweep (195 launches each) held against the
+                xla polar sweep, and the same sweep through the plain
+                versions with K2 and K1 held at each of its steps; the sweeps'
+                gaps are printed beside their rounding floor;
   7. fused   -- K7 (the whole two-site step) against its plain version on the
                 captured step's inputs, with the growth cap and renorm_envs,
                 at a ragged shape and at M=256 (K1's streaming form inside
@@ -56,21 +64,27 @@ phase trains the same model at M=512. Phases:
                 mid-chain step and at a ragged shape; train_model on 2
                 batches through the factored route (no kernel launches); one
                 sweep with factored_update="off", whose gram-free split runs
-                K4a and K4b 195 times each, held against the same sweep with
-                the plain versions and, by quality, against the factored one;
+                K4a and K4b (3xTF32 on the tensor cores) 195 times each, held
+                against the same sweep with the plain versions and, by
+                quality, against the factored one;
  12. timing  -- each kernel vs its plain version with CUDA events (plain,
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
                 yardstick call), ms per sweep on the three engines, on the
-                rangefinder split and on both M=512 routes, the device time
-                of a profiled sweep of each (and the host time of the M=512
-                ones), Predictor samples/s, and for context torch.linalg.qr
-                on K6's panel, the hybrid step (K2, K1 and two products)
-                beside K7 and polar_split_two_stage beside K8.
+                rangefinder split, on both M=512 routes and on the hybrid and
+                xla engines at M=256, the device time of a profiled sweep of
+                each (and the host time of the M=512 ones; K4a + K4b's device
+                time in the gram-free one), Predictor samples/s, and for
+                context torch.linalg.qr on K6's panel, the hybrid step (K2,
+                K1 and two products) beside K7 and polar_split_two_stage
+                beside K8.
 
 Launch counts are set to 0 just before each path (serve, train, hybrid,
-fused, two-stage, all-in-one split, the rangefinder train_model, the M=512
-training and the M=512 gram-free sweep) and read just after it; the comparisons with plain versions
-happen outside those windows.
+fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
+train_model, the M=512 training and the M=512 gram-free sweep) and read just
+after it; the comparisons with plain versions happen outside those windows.
+K4a's and K4b's bound is 3xTF32's (three tensor-core products per float32
+one at the TF32 rate); their rows of the kernels line also give the float32
+bound and the share of the 3xTF32 bound the kernel reaches.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing either, and any failed check exits
@@ -201,8 +215,32 @@ CANON_TOL = 1e-4
 # float32 eigh and SVD round differently, so 1e-4.
 SMALL_SPLIT_TOL = 1e-4
 DEVICE = "cuda"
-# peak rates of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3
-F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# peak rates of one H100 SXM at 700 W: float32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3
+F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
+# K4a and K4b run in 3xTF32: three tensor-core products for each float32 one
+TC_PASSES = 3
+# The hybrid engine above the JAX package's M*D <= 256 cap: one sweep at
+# M=256 (I = 512, where K1 runs its L2-streaming form), held against the xla
+# polar sweep on the same batch at SWEEP_TOL.
+M_WIDE = 256
+# This sweep amplifies rounding more than the flagship's: up to step 9 and
+# at its last step B's rank is below M and the kept columns past it come
+# from rounding, and at some mid-chain steps K1's fixed schedule leaves the
+# weakest directions unconverged. Two float32 runs of it part by 1.5e-2 to
+# 3e-2 of max|f| (each sweep against itself on the model with its label core
+# rescaled by 1 + RF_PERTURB; measured on an H100), so SWEEP_TOL cannot hold
+# between the kernel sweep and the plain-version sweep: both gaps are
+# printed. The kernels are held step by step instead, on each of the
+# plain-version sweep's 195 steps: K2 to K2_TOL, and K1 by
+# |Q Q^T B - Q64 Q64^T B| / max|B| against a float64 run of the plain
+# version (Q64) on the same inputs, whose mean over the sweep must stay
+# within WIDE_K1_RATIO of the plain float32 version's. Both are float32 runs
+# of one algorithm, so a kernel that computes it as well as the plain
+# version sits near 1. K1's own limits hold at the captured step, not along
+# the sweep: there the plain version itself exceeds K1_REC_TOL against
+# float64 at a few steps.
+WIDE_K1_RATIO = 2.0
 
 
 def fail(msg: str) -> None:
@@ -259,6 +297,23 @@ def phase_build() -> None:
         report = [ln.split("ptxas info    : ")[-1].strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"[build] {name}.cu {seconds:.2f} s: " + " | ".join(report))
+    tensor_core_check()
+
+
+def tensor_core_check() -> None:
+    """K4a and K4b must run on the tensor cores: their library's SASS holds
+    the tf32 warpgroup products (HGMMA ... TF32)."""
+    so = str(_build.library_path("polar_sketch"))
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass on {os.path.basename(so)} exited {sass.returncode}")
+    mma = [ln.split(";")[0].split("*/")[-1].strip() for ln in sass.stdout.splitlines()
+           if "HGMMA" in ln and "TF32" in ln]
+    if not mma:
+        fail("K4a/K4b are not on the tensor cores: no HGMMA TF32 instruction in libpolar_sketch")
+    print(f"[build] K4a/K4b: libpolar_sketch SASS holds {len(mma)} tf32 tensor-core "
+          f"instructions (3xTF32 wgmma), e.g. {mma[0]}")
 
 
 # ---- phase 3: each kernel against its plain version ------------------------
@@ -474,22 +529,29 @@ def one_sweep(mps, x, y, engine, plain=False):
         return sweep_once(*args)
 
 
-def hold_sweeps(what, a, b, x_fresh) -> float:
-    """Two one-sweep results (new_mps, f_first, f_final, metrics): f_final
-    and the swept models' scores on fresh requests, relative to max|f|."""
-    worst = 0.0
+def sweep_gaps(what, a, b, x_fresh) -> tuple[float, float]:
+    """Two one-sweep results (new_mps, f_first, f_final, metrics): how far
+    apart f_final and the swept models' scores on fresh requests are,
+    relative to max|f|."""
+    gaps = []
     for label, fa, fb in (("f_final", a[2], b[2]),
                           ("fresh scores", mps_forward(a[0], psi_embed(x_fresh)),
                            mps_forward(b[0], psi_embed(x_fresh)))):
         if not (torch.isfinite(fa).all() and torch.isfinite(fb).all()):
             fail(f"{what}: non-finite {label}")
-        rel = float((fa - fb).abs().max() / fb.abs().max())
-        worst = max(worst, rel)
+        gaps.append(float((fa - fb).abs().max() / fb.abs().max()))
+    return gaps[0], gaps[1]
+
+
+def hold_sweeps(what, a, b, x_fresh) -> float:
+    """Both gaps of ``sweep_gaps`` held to SWEEP_TOL."""
+    gaps = sweep_gaps(what, a, b, x_fresh)
+    for label, rel in zip(("f_final", "fresh scores"), gaps):
         print(f"[{what}] {label}: max|diff|/max|f| = {rel:.3g} (tol {SWEEP_TOL:g}) "
               f"{'ok' if rel <= SWEEP_TOL else 'FAIL'}")
         if rel > SWEEP_TOL:
             fail(f"{what}: {label} differs by {rel:.3g} of max|f|")
-    return worst
+    return max(gaps)
 
 
 def phase_train(mps0, x_tr, y_tr, x_val, y_val, x_fresh) -> tuple[int, float]:
@@ -552,6 +614,116 @@ def phase_hybrid(mps0, x_tr, y_tr, x_fresh) -> dict:
     hold_sweeps("hybrid", one_sweep(mps0, xe[0], ye[0], "hybrid"),
                 one_sweep(mps0, xe[0], ye[0], "xla"), x_fresh)
     return launched
+
+
+def wide_model(requests):
+    return product_init(torch.Generator().manual_seed(SEED), N=N, M=M_WIDE, D=D, L=L,
+                        act_fn="linear", loss_fn="MSE", calibration_x=requests[:512])
+
+
+def wide_plain_sweep(wide, xb, yb):
+    """The M=256 hybrid sweep through the plain versions of K2 and K1; each
+    step's inputs also go through K2, K1 and a float64 run of K1's plain
+    version. Returns the sweep and, per step, K2's largest relative error,
+    K1's and the plain version's distance from the float64 run and their
+    live columns."""
+    steps = []
+
+    def k2(*args, **kwargs):
+        want = presplit_kernel.two_site_presplit_reference(*args, **kwargs)
+        got = presplit_kernel.two_site_presplit(*args, **kwargs)
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(got, want))
+        steps.append({"k2": rel, "bmat": want[0].permute(1, 0, 2).reshape(want[0].shape[1], -1)})
+        return want
+
+    def k1(y0, g, n2=None):
+        want = polar_split.polar_iterate_reference(y0, g, n2)
+        got = polar_split.polar_iterate(y0, g, n2)
+        q64 = polar_split.polar_iterate_reference(y0.double(), g.double(),
+                                                  None if n2 is None else n2.double())
+        b64 = steps[-1].pop("bmat").double()
+        bmax = max(float(b64.abs().max()), 1e-30)
+        exact = q64 @ (q64.T @ b64)
+        for key, q in (("k1", got.double()), ("plain", want.double())):
+            steps[-1][key] = float((q @ (q.T @ b64) - exact).abs().max()) / bmax
+        steps[-1]["live"] = tuple(int((torch.linalg.vector_norm(q, dim=0) > 0.5).sum())
+                                  for q in (got, want))
+        return want
+
+    with mock.patch.object(sweep_mod, "two_site_presplit", k2), \
+            mock.patch.object(sweep_mod, "polar_iterate", k1):
+        plain = one_sweep(wide, xb, yb, "hybrid")
+    return plain, steps
+
+
+def phase_hybrid_wide(requests, xb, yb, x_fresh):
+    """The hybrid engine at M=256, above the JAX package's M*D <= 256 cap: K2
+    at I = 512 and K1's L2-streaming form against their plain versions on
+    the inputs of step CAPTURE_STEP; one sweep, 195 launches each, held
+    against the xla polar sweep on the same batch; the same sweep through
+    the plain versions, with K2 and K1 held at each of its steps
+    (WIDE_K1_RATIO). The kernel and plain-version sweeps are printed beside
+    the rounding floor (each against itself on a model whose label core is
+    rescaled by 1 + RF_PERTURB), and beside the xla sweep's own gap to its
+    plain version."""
+    wide = wide_model(requests)
+    cap = capture_step(wide, xb, yb, CAPTURE_STEP)
+    y0, g, n2 = cap["k1"]
+    errs = {"two_site_presplit": compare_presplit(f"M={M_WIDE} step {CAPTURE_STEP}", *cap["k2"]),
+            "polar_iterate": compare_polar(f"M={M_WIDE} step {CAPTURE_STEP} I={y0.shape[0]} "
+                                           f"q={y0.shape[1]}", y0, g, n2, cap["bmat"])}
+    torch.cuda.synchronize()
+    reset_counts()
+    hyb = one_sweep(wide, xb, yb, "hybrid")
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["two_site_presplit"] != STEPS or launched["polar_iterate"] != STEPS:
+        fail(f"the M={M_WIDE} hybrid sweep launched K2 {launched['two_site_presplit']} and K1 "
+             f"{launched['polar_iterate']} times (want {STEPS} each)")
+    print(f"[hybrid M={M_WIDE}] sweep engine=hybrid at M*D = {M_WIDE * D} (the JAX package "
+          f"caps it at 256): K2 launches {launched['two_site_presplit']}, K1 launches "
+          f"{launched['polar_iterate']}")
+    xla = one_sweep(wide, xb, yb, "xla")
+    hold_sweeps(f"hybrid M={M_WIDE} vs xla", hyb, xla, x_fresh)
+
+    plain, steps = wide_plain_sweep(wide, xb, yb)
+    k2_worst = max(st["k2"] for st in steps)
+    mean = {key: sum(st[key] for st in steps) / max(len(steps), 1) for key in ("k1", "plain")}
+    ratio = mean["k1"] / max(mean["plain"], 1e-30)
+    ok = len(steps) == STEPS and k2_worst <= K2_TOL and ratio <= WIDE_K1_RATIO
+    print(f"[hybrid M={M_WIDE}] the sweep through the plain versions, K2 and K1 on each of its "
+          f"{len(steps)} steps: K2 worst relative error {k2_worst:.3g} (tol {K2_TOL:g}); "
+          f"|QQtB - Q64Q64tB|/max|B| against a float64 run of K1's plain version: K1 mean "
+          f"{mean['k1']:.3g}, worst {max(st['k1'] for st in steps):.3g}, above {K1_REC_TOL:g} at "
+          f"{sum(st['k1'] > K1_REC_TOL for st in steps)} steps; plain float32 mean "
+          f"{mean['plain']:.3g}, worst {max(st['plain'] for st in steps):.3g}, above at "
+          f"{sum(st['plain'] > K1_REC_TOL for st in steps)} steps; mean ratio {ratio:.3g} (tol "
+          f"{WIDE_K1_RATIO:g}) {'ok' if ok else 'FAIL'}")
+    print(f"[hybrid M={M_WIDE}] steps where K1 and its plain version keep different numbers of "
+          f"live columns (step, K1, plain): "
+          f"{[(i, *st['live']) for i, st in enumerate(steps) if st['live'][0] != st['live'][1]]}")
+    if not ok:
+        fail(f"K2 or K1 disagrees with its plain version along the M={M_WIDE} hybrid sweep")
+
+    def rescaled(m):
+        return m.replace(label_site=m.label_site * (1 + RF_PERTURB))
+
+    p1, p2, p3, p4 = plain_versions()
+    with p1, p2, p3, p4:
+        plain_rescaled = one_sweep(rescaled(wide), xb, yb, "hybrid")
+        xla_plain = one_sweep(wide, xb, yb, "xla")
+    for what, a, b in (
+            ("hybrid vs its plain version", hyb, plain),
+            (f"rounding floor: hybrid vs itself, label core x (1 + {RF_PERTURB:g})", hyb,
+             one_sweep(rescaled(wide), xb, yb, "hybrid")),
+            ("rounding floor: plain-version hybrid vs itself, rescaled", plain, plain_rescaled),
+            ("xla vs its plain version", xla, xla_plain),
+            ("plain-version hybrid vs plain-version xla (no kernel)", plain, xla_plain)):
+        gaps = sweep_gaps(f"hybrid M={M_WIDE} {what}", a, b, x_fresh)
+        print(f"[hybrid M={M_WIDE}] {what}: f_final {gaps[0]:.3g}, fresh scores {gaps[1]:.3g} "
+              f"of max|f| (printed, not held)")
+    return wide, errs
 
 
 # ---- phase 7: the fused engine (K7) ---------------------------------------------
@@ -1271,9 +1443,18 @@ def turns(name, kern, plain, reps=20, library=None, plain_reps=None):
     return (k1 + k2) / 2, (p1 + p2) / 2, sum(lib) / 2 if lib else None
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    """The least time for ``flops`` operations at ``peak`` FLOP/s and
+    ``nbytes`` at the HBM rate, in ms, and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tc_bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The bound of a float32 product run in 3xTF32: the tensor part three
+    times over at the TF32 rate (the other operations, n2's squares, are a
+    rounding of it)."""
+    return bound_ms(TC_PASSES * flops, nbytes, TF32_FLOPS)
 
 
 def chain_work(n, m, b):
@@ -1361,8 +1542,11 @@ def host_time_line(what, fn) -> None:
 # name counts for the first entry it matches
 PROFILE_KERNELS = {
     "K1": ("polar_resident_kernel", "polar_streaming_kernel"),
-    "K2": ("grad_kernel", "update_kernel", "reduce_kernel", "finish_kernel"),
-    "K4/K5": ("sketch_tile_kernel", "sketch_finish_kernel", "sketch_bt_kernel"),
+    # K2's launches, by namespace: PyTorch's own reductions are also named
+    # reduce_kernel
+    "K2": ("presplit::grad_kernel", "presplit::update_kernel", "presplit::reduce_kernel",
+           "presplit::finish_kernel"),
+    "K4/K5": ("sketch_tile_kernel", "sketch_finish_kernel", "tc_gemm_kernel"),
     # K7's own launches; its other six share K2's and K1's names, and K8's
     # launches are K5's and K1's (one source of device code for each)
     "K7": ("step_product_kernel", "step_scale_kernel"),
@@ -1401,6 +1585,7 @@ def summarise_profile(engine, prof, wall_ms, groups=PROFILE_KERNELS) -> None:
           + ", ".join(f"{kern} {v:.1f} ms" for kern, v in ours.items())
           + f", other {busy - sum(ours.values()):.1f} ms; top: "
           + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+    return ours, busy
 
 
 def gram_flops(I, J):
@@ -1502,12 +1687,37 @@ def phase_large_timing(mps, large, captured, xb, yb) -> dict:
               f"{v[0]:.1f} / {v[1]:.1f} ms, {BATCH / (sum(v) / 2) * 1e3:.0f} samples/s")
     ms["large_sweep"] = {names[k]: sum(v) / 2 for k, v in sweep_ms.items()}
     for route in ("auto", "off"):
-        summarise_profile(f"M={M_LARGE} {names[route]}",
-                          device_time_table(lambda: large_sweep(mps, xb, yb, route)),
-                          ms["large_sweep"][names[route]])
+        ours, busy = summarise_profile(
+            f"M={M_LARGE} {names[route]}",
+            device_time_table(lambda: large_sweep(mps, xb, yb, route)),
+            ms["large_sweep"][names[route]])
+        if route == "off":
+            print(f"[profile] M={M_LARGE} gram-free sweep: K4a + K4b {ours['K4/K5']:.1f} ms of "
+                  f"{busy:.1f} ms device busy on the tensor cores in 3xTF32, against 231.2 ms "
+                  f"of 721.8 ms with the float32 FMA tiles (H100 80GB HBM3, 700 W; PERF.md section 5)")
         host_time_line(f"M={M_LARGE} {names[route]} sweep",
                        lambda: large_sweep(mps, xb, yb, route))
     return ms
+
+
+def phase_wide_timing(wide, xb, yb) -> dict:
+    """ms per sweep at M=256 on the hybrid and the xla engine (in turns), and a
+    profiled hybrid sweep: its device busy time and idle share."""
+    sweep_ms = {}
+    for engine in ("xla", "hybrid", "hybrid", "xla"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_sweep(wide, xb, yb, engine)
+        torch.cuda.synchronize()
+        sweep_ms.setdefault(engine, []).append((time.perf_counter() - t0) * 1e3)
+    for engine, v in sweep_ms.items():
+        print(f"[timing] M={M_WIDE} sweep engine={engine} (polar split): {v[0]:.1f} / "
+              f"{v[1]:.1f} ms, {BATCH / (sum(v) / 2) * 1e3:.0f} samples/s")
+    wide_ms = {k: sum(v) / 2 for k, v in sweep_ms.items()}
+    summarise_profile(f"M={M_WIDE} hybrid",
+                      device_time_table(lambda: one_sweep(wide, xb, yb, "hybrid")),
+                      wide_ms["hybrid"])
+    return {"wide_sweep": wide_ms}
 
 
 def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
@@ -1602,13 +1812,16 @@ def main() -> None:
     launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
                                                            x_fresh)
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
+    xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
+    yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
+    wide, wide_errs = phase_hybrid_wide(requests, xb, yb, x_fresh)
+    for name, err in wide_errs.items():
+        errs[name] = max(errs[name], err)
     errs["two_site_step"] = phase_step_kernels(captured)
     launches["two_site_step"] = phase_fused(mps, x_tr, y_tr, x_fresh)["two_site_step"]
     launches["polar_sketch_gram"] = phase_two_stage(captured)["polar_sketch_gram"]
     errs["polar_split"] = phase_polar_split_kernels(captured)
     launches["polar_split"] = phase_polar_split(captured)["polar_split"]
-    xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
-    yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
 
     errs["rangefinder_split"] = phase_rangefinder_kernels(captured)
     rf_trained, launches["rangefinder_split"], rf_batch_s = phase_rangefinder_train(mps)
@@ -1631,6 +1844,7 @@ def main() -> None:
     ms = phase_timing(mps, requests, x_big, captured, x_tr, y_tr)
     ms.update(phase_rangefinder_timing(mps, captured, xb, yb))
     ms.update(phase_large_timing(big, large, captured, xb, yb))
+    ms.update(phase_wide_timing(wide, xb, yb))
 
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
@@ -1646,12 +1860,23 @@ def main() -> None:
         "two_site_step": step_work(L, M, BATCH, pe),
         "polar_split": polar_split_work(M * D, L * D * M, M, pe),
     }
+    # K4a and K4b run in 3xTF32 on the tensor cores: their bound is the
+    # tensor part three times over at the TF32 rate; the float32 one is printed
+    # beside it
+    tensor_core = ("gramfree_sketch", "gramfree_gmul")
     for name, (flops, nbytes) in list(work.items()) + [
             ("right_env_chain B=8192", chain_work(N - 1, M, BIG)),
             (f"polar_sketch_gram M={M_LARGE}", sketch_work(I_big, J_big, M_LARGE, True))]:
         b_ms, b_by = bound_ms(flops, nbytes)
-        print(f"[bound] {name}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> {b_ms * 1e3:.2f} us "
-              f"({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s f32 and {HBM_BYTES / 1e12:g} TB/s")
+        line = (f"[bound] {name}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> f32 bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s and "
+                f"{HBM_BYTES / 1e12:g} TB/s")
+        if name in tensor_core:
+            t_ms, t_by = tc_bound_ms(flops, nbytes)
+            line += (f"; 3xTF32 bound {t_ms * 1e3:.2f} us ({t_by}) at {TC_PASSES} x {flops:.3g} "
+                     f"FLOP and {TF32_FLOPS / 1e12:g} TFLOP/s; kernel {ms[name][0] * 1e3:.1f} us, "
+                     f"3xTF32 bound / kernel = {t_ms / ms[name][0]:.3f}")
+        print(line)
     rows = []
     for name, source, replaces, key in (
         ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
@@ -1673,8 +1898,8 @@ def main() -> None:
         ("polar_split", "polar_iterate.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:192", "polar_split"),
     ):
-        b_ms, b_by = bound_ms(*work[name])
-        rows.append({
+        b_ms, b_by = (tc_bound_ms if name in tensor_core else bound_ms)(*work[name])
+        row = {
             "name": name,
             "route": "cuda",
             "source": f"tensornetworkforml_torch/csrc/{source}",
@@ -1688,11 +1913,16 @@ def main() -> None:
             # K1, K2, K3, K6, K7 and K8: no single PyTorch call computes what
             # they compute
             "library_ms": ms[key][2],
-        })
+        }
+        if name in tensor_core:  # the float32 bound beside the 3xTF32 one
+            row["bound_fp32_ms"] = bound_ms(*work[name])[0]
+            row["bound_share"] = b_ms / ms[key][0]
+        rows.append(row)
     print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "
           f"ms/batch; rangefinder sweep {ms['rf_sweep']:.1f} ms, its train_model "
           f"{rf_batch_s * 1e3:.1f} ms/batch; M={M_LARGE} ms per sweep {ms['large_sweep']}; "
-          f"M={M_LARGE} train_model {large_batch_s * 1e3:.1f} ms/batch; {time.perf_counter() - T_START:.1f} s in all")
+          f"M={M_LARGE} train_model {large_batch_s * 1e3:.1f} ms/batch; M={M_WIDE} ms per sweep "
+          f"{ms['wide_sweep']}; {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,88 +8,137 @@
 //                                          y = B Omega, G = B B^T (I, I), n2
 // The Pallas kernels walk J in chunks on one core and carry the (I, q) and
 // (I, I) sums in VMEM from one grid step to the next. Here every output is cut
-// into 64 x 64 tiles whose k range (the J axis) is split over S blocks when
-// the tiles alone cannot fill the card; the S partial tiles are then added in
-// a fixed order by a second launch. There are no float atomics: two launches
-// agree bit for bit. Every product is a float32 FMA (tile_gemm.cuh); TF32 is
-// not used.
+// into tiles whose k range is split over S blocks when the tiles alone cannot
+// fill the card; the S partial tiles are then added in a fixed order by a
+// second launch (sketch_finish_kernel). There are no float atomics: two
+// launches agree bit for bit.
 //
 // What bounds them on this card: the operations. At M = 512 (I = 1024,
-// J = 10240, q = 512) K4a is 1.07e10 FLOP against 64 MB of traffic, K4b
-// 2.15e10 and K5 3.22e10 against at most 69 MB, so the float32 FMA rate and
-// how many SMs have work decide; B (42 MB) fits the 50 MB L2.
+// J = 10240, q = 512) K4a is 1.07e10 FLOP against 65 MB of traffic and K4b
+// 2.15e10 against 46 MB; B (42 MB) fits the 50 MB L2.
 //
 // Design:
-//   sketch_tile_kernel    (sketch_gram.cuh, shared with K6) one block per
-//                         (output tile, k split). The y tiles of
-//                         output column-tile 0 also sum the squares of the B
-//                         elements they load, so n2 costs no second pass over
-//                         B. K5 adds the tiles of G's upper triangle and
-//                         writes each off-diagonal tile twice (G and its
-//                         mirror): 136 instead of 256 tiles at I = 1024.
-//   sketch_finish_kernel  (sketch_gram.cuh) adds the S partial tiles in split
-//                         order, and the n2 partials in a fixed tree order.
-//   sketch_bt_kernel      K4b's first half, t = B^T y1 (J, q) with k = I; t
-//                         goes to scratch (21 MB at M = 512, mostly held in
-//                         L2), and the second half z = B t is
-//                         sketch_tile_kernel with t for Omega.
-// K4b is these launches together, counted as one kernel by its wrapper.
+//   K4a, K4b  run on the tensor cores in 3xTF32 (tc_gemm.cuh: 128 x 128
+//             tiles, wgmma m64n128k8, a cp.async ring): each product within
+//             about ten times float32's error (tc_gemm.cuh), at up to
+//             3 x 495 / 67 ~ 2.5 times the float32 FMA rate's bound.
+//             K4a is y0 = B Omega; the y0 tiles of output column-tile 0 also
+//             sum the squares of the float32 B elements they load, so n2
+//             costs no second pass over B.
+//             K4b is t^T = y1^T B (q, J), k = I, into scratch (21 MB at
+//             M = 512), then z = B t, k = J, with t^T read K-major; both
+//             operands of the first half are transposed while they are split
+//             into hi and lo. Its blocks run in one wave, all walking their k
+//             ranges in step, so the chunks of B and t^T they share are read
+//             from L2 while hot.
+//   K5        sketch_tile_kernel (sketch_gram.cuh, shared with K6 and K8),
+//             every product a float32 FMA: G's upper triangle of 64 x 64
+//             tiles, each off-diagonal tile written twice (G and its mirror).
+// K4b is its launches together, counted as one kernel by its wrapper.
 
 #include <cuda_runtime.h>
 
 #include "sketch_gram.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-// t = B^T y1: (J, q), k = I
-__global__ void __launch_bounds__(NT) sketch_bt_kernel(const float* __restrict__ b,
-                                                const float* __restrict__ y1, float* t, int I,
-                                                int J, int q, int nJ) {
-  __shared__ Smem sm;
-  const int jt = blockIdx.x % nJ, qt = blockIdx.x / nJ;
-  const int ty = threadIdx.x / (T / 4), tx = threadIdx.x % (T / 4);
-  float acc[4][4];
-  tile_gemm<T, T, TK, NT, false, false>(
-      sm, jt * T, qt * T, I,
-      [=](int m, int k) { return (m < J && k < I) ? b[(size_t)k * J + m] : 0.f; },
-      [=](int k, int n) { return (k < I && n < q) ? y1[(size_t)k * q + n] : 0.f; }, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = jt * T + ty * 4 + i, n = qt * T + tx * 4 + j;
-      if (m < J && n < q) t[(size_t)m * q + n] = acc[i][j];
-    }
+// the fixed-order sum of a tensor-core GEMM's S partial tiles (and of its
+// partial sums of squares, where n2 is wanted) into g.c, which is dense
+int finish(const tc::Gemm& g, float* n2, cudaStream_t stream) {
+  if (g.S == 1 && n2 == nullptr) return 0;
+  Args f{};
+  f.y = g.c;
+  f.yp = g.cp;
+  f.n2 = n2;
+  f.n2p = g.n2p;
+  f.I = g.M;
+  f.q = g.N;
+  f.nI = g.nM;
+  f.S = g.S;
+  sketch_finish_kernel<<<g.S > 1 ? cdiv((long)g.M * g.N, NT) : 1, NT, 0, stream>>>(f);
+  return (int)cudaGetLastError();
+}
+
+// K4a's GEMM: y0 (I, q) = B (I, J) Omega (J, q), k = J
+tc::Gemm sketch_plan(const float* b, const float* om, float* y0, int I, int J, int q) {
+  tc::Gemm g{};
+  tc::plan(g, I, q, J);
+  g.a = b;
+  g.lda = J;
+  g.a_vec = tc::aligned16(b, J);
+  g.b = om;
+  g.ldb = q;
+  g.b_vec = tc::aligned16(om, q);
+  g.c = y0;
+  g.ldc = q;
+  return g;
+}
+
+// K4b's halves: t^T (q, J) = y1^T B, k = I; z (I, q) = B t, k = J
+tc::Gemm gmul_first_plan(const float* b, const float* y1, float* tt, int I, int J, int q) {
+  tc::Gemm g{};
+  tc::plan(g, q, J, I);
+  g.a = y1;
+  g.lda = q;
+  g.a_vec = tc::aligned16(y1, q);
+  g.b = b;
+  g.ldb = J;
+  g.b_vec = tc::aligned16(b, J);
+  g.c = tt;
+  g.ldc = J;
+  return g;
+}
+
+tc::Gemm gmul_second_plan(const float* b, const float* tt, float* z, int I, int J, int q) {
+  tc::Gemm g{};
+  tc::plan(g, I, q, J);
+  g.a = b;
+  g.lda = J;
+  g.a_vec = tc::aligned16(b, J);
+  g.b = tt;
+  g.ldb = J;
+  g.b_vec = tc::aligned16(tt, J);
+  g.c = z;
+  g.ldc = q;
+  return g;
 }
 
 }  // namespace
 
 extern "C" {
 
-// scratch of K4a (gram = 0) or K5 (gram = 1), in floats
-long tnml_sketch_scratch_floats(int I, int J, int q, int gram) {
+// scratch of K5, in floats
+long tnml_sketch_scratch_floats(int I, int J, int q) {
   Args a{};
-  plan(a, I, J, q, gram != 0);
+  plan(a, I, J, q, true);
   return partial_floats(a);
 }
 
-// scratch of K4b, in floats: t (J, q) and the partials of z = B t
+// scratch of K4a, in floats: the partial sums of squares, then the partials
+// of y0
+long tnml_gramfree_sketch_scratch_floats(int I, int J, int q) {
+  const tc::Gemm g = sketch_plan(nullptr, nullptr, nullptr, I, J, q);
+  return (long)g.S * g.nM + tc::partial_floats(g);
+}
+
+// scratch of K4b, in floats: t^T (q, J), then the partials of either half
 long tnml_gmul_scratch_floats(int I, int J, int q) {
-  Args a{};
-  plan(a, I, J, q, false);
-  return (long)J * q + partial_floats(a);
+  const tc::Gemm g1 = gmul_first_plan(nullptr, nullptr, nullptr, I, J, q);
+  const tc::Gemm g2 = gmul_second_plan(nullptr, nullptr, nullptr, I, J, q);
+  return (long)q * J + std::max(tc::partial_floats(g1), tc::partial_floats(g2));
 }
 
 // K4a: y0 = B Omega, n2 = |B|_F^2
 int tnml_gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch,
                          int I, int J, int q, void* stream) {
-  Args a{};
-  plan(a, I, J, q, false);
-  a.b = b;
-  a.rhs = om;
-  a.y = y0;
-  a.n2 = n2;
-  return launch_sketch(a, scratch, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  tc::Gemm g = sketch_plan(b, om, y0, I, J, q);
+  g.n2p = scratch;
+  g.cp = scratch + (size_t)g.S * g.nM;
+  cudaError_t err = tc::launch<true, false>(g, st);
+  if (err != cudaSuccess) return (int)err;
+  return finish(g, n2, st);
 }
 
 // K5: y = B Omega, G = B B^T, n2 = |B|_F^2
@@ -109,17 +158,19 @@ int tnml_sketch_gram(const float* b, const float* om, float* y, float* g, float*
 int tnml_gramfree_gmul(const float* b, const float* y1, float* z, float* scratch, int I, int J,
                        int q, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nJ = cdiv(J, T);
-  float* t = scratch;
-  sketch_bt_kernel<<<nJ * cdiv(q, T), NT, 0, st>>>(b, y1, t, I, J, q, nJ);
-  cudaError_t err = cudaGetLastError();
+  float* tt = scratch;
+  float* parts = scratch + (size_t)q * J;
+  tc::Gemm g1 = gmul_first_plan(b, y1, tt, I, J, q);
+  g1.cp = parts;
+  cudaError_t err = tc::launch<false, false>(g1, st);
   if (err != cudaSuccess) return (int)err;
-  Args a{};
-  plan(a, I, J, q, false);
-  a.b = b;
-  a.rhs = t;
-  a.y = z;
-  return launch_sketch(a, scratch + (size_t)J * q, st);
+  int e = finish(g1, nullptr, st);
+  if (e != 0) return e;
+  tc::Gemm g2 = gmul_second_plan(b, tt, z, I, J, q);
+  g2.cp = parts;
+  err = tc::launch<true, true>(g2, st);
+  if (err != cudaSuccess) return (int)err;
+  return finish(g2, nullptr, st);
 }
 
 const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

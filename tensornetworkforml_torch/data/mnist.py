@@ -59,12 +59,14 @@ def _find(data_dir: str, base: str) -> str | None:
 
 
 def get_MNIST_dataset(
-    data_root_dir: str = "./datasets",
+    data_root_dir: str = "./datasets", download: bool = False
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Load MNIST from local IDX files.
 
     Returns ``(train_data (60000,28,28) float, train_labels, test_data,
-    test_labels)``. A FileNotFoundError is raised if the files are absent.
+    test_labels)``. ``download`` is accepted for signature parity with the
+    JAX package; no network access is ever attempted. A FileNotFoundError
+    is raised if the files are absent.
     """
     arrays = {}
     for key, base in _FILES.items():

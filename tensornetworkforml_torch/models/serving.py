@@ -27,7 +27,10 @@ class Predictor:
     ``use_kernel`` selects the fused embed + chain kernel
     (``ops/kernels/env_scan.py``); by default it is on exactly when the
     device is a CUDA device, D == 2 and the label leg sits at site 0.
-    Otherwise the plain forward (``mps_forward``) serves.
+    Otherwise the plain forward (``mps_forward``) serves. ``use_pallas`` is
+    the JAX package's name for ``use_kernel``, as argument and attribute,
+    with the same meaning; passing both with different values raises
+    ``ValueError``.
     """
 
     def __init__(
@@ -38,7 +41,15 @@ class Predictor:
         activation: bool = False,
         use_kernel: Optional[bool] = None,
         device=None,
+        use_pallas: Optional[bool] = None,
     ):
+        if use_pallas is not None:
+            if use_kernel is not None and bool(use_kernel) != bool(use_pallas):
+                raise ValueError(
+                    f"use_kernel={use_kernel} and use_pallas={use_pallas} disagree; "
+                    "use_pallas is the JAX package's name for use_kernel"
+                )
+            use_kernel = use_pallas
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (batch-sharded) serving is not ported yet "
@@ -61,6 +72,11 @@ class Predictor:
                 self.device.type == "cuda" and self.mps.D == 2 and self.mps.l_pos == 0
             )
         self.use_kernel = bool(use_kernel)
+
+    @property
+    def use_pallas(self) -> bool:
+        """The JAX package's name for ``use_kernel``."""
+        return self.use_kernel
 
     @classmethod
     def from_checkpoint(cls, path: str, device=None, **kwargs) -> "Predictor":

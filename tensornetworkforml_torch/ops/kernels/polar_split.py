@@ -27,7 +27,8 @@ kernel ``polar_iterate_pallas``); on a CPU tensor it runs the plain version
 as plain products in between. ``polar_split_two_stage`` is the split as
 ``polar_sketch_gram`` (K5: ``y``, ``G`` and ``n2`` in one pass over B)
 followed by K1. The three reductions are ``csrc/polar_sketch.cu`` on a card
-and their ``*_reference`` plain versions on the CPU.
+(K4a and K4b on the tensor cores in 3xTF32, ``csrc/tc_gemm.cuh``; K5 in
+float32 FMAs) and their ``*_reference`` plain versions on the CPU.
 
 ``polar_split`` is the all-in-one split (K8, the counterpart of the JAX
 package's ``polar_split_pallas``): the sketch, the Gram and ``n2`` in one pass
@@ -59,8 +60,10 @@ _PE_FINAL = (1e-7, 1e-7)
 # directions of the squared spectrum start near 4e-8
 _PE_FINAL_GRAMFREE = (1e-8, 1e-7)
 _MAX_PASSES = 64  # coefficient slots of the kernel's parameter block
-# the split methods' products all run in full float32 here; TF32 and 3xTF32
-# are an open numerics decision
+# the split methods' products all run in float32 here, apart from K4a and
+# K4b, which run in 3xTF32 on the tensor cores (within about ten times
+# float32's error); a reduced precision for the rest is an open numerics
+# decision
 _FULL_F32 = ("default", "highest")
 
 
@@ -320,10 +323,10 @@ def _sketch_lib() -> ctypes.CDLL:
         lib.tnml_gramfree_gmul.argtypes = [p, p, p, p, i, i, i, p]
         for fn in (lib.tnml_gramfree_sketch, lib.tnml_sketch_gram, lib.tnml_gramfree_gmul):
             fn.restype = ctypes.c_int
-        lib.tnml_sketch_scratch_floats.argtypes = [i, i, i, i]
-        lib.tnml_sketch_scratch_floats.restype = ctypes.c_long
-        lib.tnml_gmul_scratch_floats.argtypes = [i, i, i]
-        lib.tnml_gmul_scratch_floats.restype = ctypes.c_long
+        for fn in (lib.tnml_sketch_scratch_floats, lib.tnml_gramfree_sketch_scratch_floats,
+                   lib.tnml_gmul_scratch_floats):
+            fn.argtypes = [i, i, i]
+            fn.restype = ctypes.c_long
         lib.tnml_cuda_error_string.argtypes = [i]
         lib.tnml_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -371,7 +374,8 @@ def _scratch(n: int, like: torch.Tensor) -> torch.Tensor:
 
 def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
     """K4a: ``y0 = B om (I, q)`` and ``n2 = |B|_F^2 (1, 1)`` in one pass over
-    ``bmat (I, J)``.
+    ``bmat (I, J)``. On the card every product runs on the tensor cores in
+    3xTF32 (``csrc/tc_gemm.cuh``), within about ten times float32's error.
 
     CPU tensors run ``gramfree_sketch_reference``. CUDA tensors must be
     float32 and contiguous and launch the kernel; each launch adds one to
@@ -383,7 +387,7 @@ def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
     y0 = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
     n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
     lib = _sketch_lib()
-    scratch = _scratch(lib.tnml_sketch_scratch_floats(I, J, q, 0), bmat)
+    scratch = _scratch(lib.tnml_gramfree_sketch_scratch_floats(I, J, q), bmat)
     _run("gramfree_sketch", bmat, lambda lib, stream: lib.tnml_gramfree_sketch(
         bmat.data_ptr(), om.data_ptr(), y0.data_ptr(), n2.data_ptr(), scratch.data_ptr(),
         I, J, q, stream))
@@ -395,8 +399,10 @@ def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
     """K4b: ``z = B (B^T y1)``, ``(I, q)``, with no ``(I, I)`` Gram.
 
     CPU tensors run ``gramfree_gmul_reference``. CUDA tensors must be float32
-    and contiguous and launch the kernel (two launches: ``t = B^T y1``, then
-    ``z = B t``); each call adds one to ``gramfree_gmul.launches``.
+    and contiguous and launch the kernel (``t^T = y1^T B``, then ``z = B t``,
+    each on the tensor cores in 3xTF32, each followed by a fixed-order sum
+    where its k range is split); each call adds one to
+    ``gramfree_gmul.launches``.
     """
     if not _on_card("gramfree_gmul", bmat, y1, 0):
         return gramfree_gmul_reference(bmat, y1)
@@ -425,7 +431,7 @@ def polar_sketch_gram(bmat: torch.Tensor, om: torch.Tensor):
     g = torch.empty((I, I), dtype=torch.float32, device=bmat.device)
     n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
     lib = _sketch_lib()
-    scratch = _scratch(lib.tnml_sketch_scratch_floats(I, J, q, 1), bmat)
+    scratch = _scratch(lib.tnml_sketch_scratch_floats(I, J, q), bmat)
     _run("polar_sketch_gram", bmat, lambda lib, stream: lib.tnml_sketch_gram(
         bmat.data_ptr(), om.data_ptr(), y.data_ptr(), g.data_ptr(), n2.data_ptr(),
         scratch.data_ptr(), I, J, q, stream))

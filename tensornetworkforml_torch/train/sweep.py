@@ -24,18 +24,20 @@ plain tensor operations plus the configured split (every ``svd_method`` of
 subspace iteration is kernel K1 up to I = M*D = 768 rows, and above it the
 split is gram-free with kernels K4a and K4b; with ``"rangefinder"`` the whole
 split is kernel K6 from I = 128 rows (M >= 64 at D = 2); ``"hybrid"`` runs
-kernel K2 (``two_site_presplit``) and then K1 on every step; ``"fused"`` runs
-the whole step as kernel K7 (``two_site_step``), at every bond. The factored
-large-bond update (``train/factored_step.py``) takes a step of the xla engine
-where the JAX package's rule sends it there (``factored_update="on"``, or
-``"auto"`` at ``M*D > 512``, for a canonical fixed-rank polar split with no
-L2); it runs no kernel. ``dist_split`` is not ported yet and raises
-``NotImplementedError``.
+kernel K2 (``two_site_presplit``) and then K1 on every step, above
+``M*D = 256`` too (the JAX package's cap there was a VMEM limit of the TPU);
+``"fused"`` runs the whole step as kernel K7 (``two_site_step``), at every
+bond. The factored large-bond update (``train/factored_step.py``) takes a
+step of the xla engine where the JAX package's rule sends it there
+(``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for a canonical
+fixed-rank polar split with no L2); it runs no kernel. ``dist_split`` is not
+ported yet and raises ``NotImplementedError``.
 
-``matmul_precision``: every product of the port runs in full float32 (TF32
-stays off), which is what ``"default"``, ``"float32"`` and ``"highest"``
-mean here; reduced-precision modes are a numerics decision not taken yet
-(ROADMAP queue 1 item 9).
+``matmul_precision``: every product of the port runs in float32 (TF32 stays
+off), apart from K4a and K4b, which run in 3xTF32 on the tensor cores, within
+about ten times float32's error; that is what ``"default"``, ``"float32"``
+and ``"highest"`` mean here. Reduced-precision modes are a numerics decision
+not taken yet (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -296,12 +298,6 @@ def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec
             "engine='hybrid' requires split_mode='canonical', "
             "L2_flag=False, rank_mode='fixed', update_mode='clip', "
             "dist_split='none'"
-        )
-    if M * D > 256:
-        raise ValueError(
-            "engine='hybrid' single-block kernel requires M*D <= 256 "
-            "(VMEM block stacks); larger bonds use the streaming "
-            "gramfree split on the xla engine"
         )
     om = _svd.rangefinder_omega(L * D * M, M, torch.float32, dev).reshape(L, D * M, M)
     lab, a2s, x, y1h, r32, l_env, f, lr32, wd32 = _f32_carry(

@@ -50,5 +50,12 @@ def test_mnist_idx_reader_matches_jax(tmp_path):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
+    # the JAX signature's ``download`` keyword: accepted, and no network
+    got = tmn.get_MNIST_dataset(str(tmp_path), download=False)
+    want = jmn.get_MNIST_dataset(str(tmp_path), download=False)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(FileNotFoundError):
         tmn.get_MNIST_dataset(str(tmp_path / "missing"))
+    with pytest.raises(FileNotFoundError):
+        tmn.get_MNIST_dataset(str(tmp_path / "missing"), download=False)

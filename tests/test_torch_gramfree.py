@@ -21,14 +21,21 @@ Tolerances:
   entries times entries of B in random signs, so the projector's tolerance
   grows by sqrt(I) ~ 10 at the I <= 96 here: 1e-4 (measured up to 2e-5);
 * on the card, against a float64 run of the plain version: 1e-4 of the
-  output's largest entry (float32 sums of up to 10^4 terms in another order).
+  output's largest entry (float32 sums of up to 10^4 terms in another order;
+  K4a and K4b run in 3xTF32 on the tensor cores, about ten times float32's
+  error and measured up to 2.2e-5; TF32 alone reads above the limit, in an
+  emulation on the CPU and in cuBLAS on the card).
 """
+
+import os
+import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from tensornetworkforml_torch.ops import svd as tsvd
+from tensornetworkforml_torch.ops.kernels import _build
 from tensornetworkforml_torch.ops.kernels import polar_split as tps
 
 RED_TOL = 1e-5
@@ -265,6 +272,59 @@ def test_sketch_wrappers_reject_a_device_they_have_no_kernel_for():
         tps.gramfree_gmul(b.to("meta"), torch.zeros((4, 2), device="meta"))
 
 
+# ---- 3xTF32, emulated on the CPU --------------------------------------------------
+
+def _tf32(x):
+    """float32 -> tf32 by round-to-nearest (ties away), as ``cvt.rna.tf32.f32``:
+    the low 13 mantissa bits cleared."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The tensor-core kernels' product: hi = tf32(x), lo = tf32(x - hi) for
+    each operand, lo.hi + hi.lo, then hi.hi, summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _ill_scaled(I, J, q, seed):
+    """B with row scales spanning 1e-3 to 1e3 (shuffled), Omega and an
+    orthonormal y1."""
+    r = np.random.default_rng(seed)
+    scale = np.logspace(-3, 3, I)[r.permutation(I)]
+    b = (r.standard_normal((I, J)) / np.sqrt(J) * scale[:, None]).astype(np.float32)
+    om = r.standard_normal((J, q)).astype(np.float32)
+    y1 = np.linalg.qr(r.standard_normal((I, q)))[0].astype(np.float32)
+    return b, om, y1
+
+
+def test_3xtf32_holds_the_card_limit_where_tf32_alone_does_not():
+    """A numpy emulation of the product K4a and K4b run on the card: on an
+    ill-scaled B, 3xTF32 stays within the card tests' limit (CARD_TOL of
+    each output's max, against float64), TF32 alone does not. So the limit
+    tells the two forms apart."""
+    b, om, y1 = _ill_scaled(64, 384, 32, seed=0)
+    b64 = b.astype(np.float64)
+    want_y0, want_z = b64 @ om, b64 @ (b64.T @ y1)
+    bt = np.ascontiguousarray(b.T)
+    got3 = {"y0": _mm_3xtf32(b, om), "z": _mm_3xtf32(b, _mm_3xtf32(bt, y1))}
+    got1 = {"y0": _mm_tf32(b, om), "z": _mm_tf32(b, _mm_tf32(bt, y1))}
+    for name, want in (("y0", want_y0), ("z", want_z)):
+        assert _rel(got3[name], want) < CARD_TOL, name
+        assert _rel(got1[name], want) > CARD_TOL, name
+    # the split itself: hi + lo carries x to ~2^-22 relative
+    x = b.ravel()
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert np.all(np.abs((hi.astype(np.float64) + lo) - x) <= 2.0 ** -21 * np.abs(x))
+
+
 # ---- on the card ---------------------------------------------------------------
 
 # the M = 512 two-site matrix (I = 2M, J = L D M, q = M), and a ragged shape
@@ -307,6 +367,47 @@ def test_kernels_match_plain_on_card(shape, cuda):
     for got, want in zip((y, g, n2g), tps.polar_sketch_gram_reference(b.double(), om.double())):
         _held(got, want)
     assert torch.equal(g, g.T)  # one triangle computed, mirrored
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+def test_tensor_core_kernels_hold_the_card_limit_on_an_ill_scaled_b(shape, cuda):
+    """K4a and K4b (3xTF32 on the tensor cores) on a B whose row scales span
+    1e-3 to 1e3: each output within CARD_TOL of its max against the float64
+    plain version. Control: the same products through cuBLAS with TF32
+    allowed (TF32 alone) read above CARD_TOL, so the limit tells the two
+    forms apart at these shapes."""
+    I, J, q, dead = CARD_SHAPES[shape]
+    b, om, y1 = _ill_scaled(I, J, q, seed=q)
+    b[:, list(dead)] = 0.0
+    b, om, y1 = (torch.as_tensor(a).to(cuda) for a in (b, om, y1))
+    y0, n2 = tps.gramfree_sketch(b, om)
+    z = tps.gramfree_gmul(b, y1)
+    torch.cuda.synchronize()
+    w_y0, w_n2 = tps.gramfree_sketch_reference(b.double(), om.double())
+    w_z = tps.gramfree_gmul_reference(b.double(), y1.double())
+    _held(y0, w_y0)
+    _held(n2, w_n2)
+    _held(z, w_z)
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = {"y0": (b @ om, w_y0), "z": (b @ (b.T @ y1), w_z)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
+    for name, (got, want) in tf32.items():
+        assert _rel(got.double().cpu().numpy(), want.cpu().numpy()) > CARD_TOL, name
+
+
+@pytest.mark.cuda
+def test_gramfree_reductions_run_on_the_tensor_cores(cuda):
+    """K4a and K4b's built library holds Hopper's tf32 warpgroup products
+    (``HGMMA ... TF32`` in its SASS), not only float32 FMAs."""
+    tps._sketch_lib()  # builds the library
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("polar_sketch"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    assert any("HGMMA" in ln and "TF32" in ln for ln in sass.splitlines())
 
 
 @pytest.mark.cuda

@@ -166,9 +166,10 @@ def test_wrapper_rejects_a_device_it_has_no_kernel_for():
         tps.polar_iterate(y, g.to("meta"))
 
 
-# On the card: ragged shapes, the flagship (I = 256, q = 128) and a column
-# block wider than one tile (q = 200: 25 columns per CTA > 16 per tile).
-CUDA_CASES = [(16, 8), (40, 24), (256, 128), (320, 200)]
+# On the card: ragged shapes, the flagship (I = 256, q = 128), a column
+# block wider than one tile (q = 200: 25 columns per CTA > 16 per tile) and
+# the hybrid step at M = 256 (I = 512, q = 256: the L2-streaming form).
+CUDA_CASES = [(16, 8), (40, 24), (256, 128), (320, 200), (512, 256)]
 
 
 @pytest.mark.cuda

@@ -100,8 +100,9 @@ def test_wrapper_rejects_a_device_it_has_no_kernel_for():
         tpk.two_site_presplit(*args, 0.1, 0.0)
 
 
-# On the card: the flagship step (L = 10, M = 128, B = 256) and a ragged one.
-CUDA_SHAPES = [(10, 128, 2, 256, 128), (3, 5, 2, 37, 5)]
+# On the card: the flagship step (L = 10, M = 128, B = 256), the hybrid step
+# at M = 256 (I = 512, above the JAX package's cap) and a ragged one.
+CUDA_SHAPES = [(10, 128, 2, 256, 128), (10, 256, 2, 256, 256), (3, 5, 2, 37, 5)]
 
 
 @pytest.mark.cuda

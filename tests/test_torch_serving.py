@@ -65,6 +65,23 @@ def test_port_serves_what_the_pallas_predictor_serves(tmp_path, jax_model, use_k
     np.testing.assert_array_equal(got_pred.predict(x), got_pred.scores(x).argmax(axis=1))
 
 
+def test_use_pallas_is_the_jax_name_for_use_kernel(jax_model):
+    t = mps_from_numpy(np.asarray(jax_model.sites), np.asarray(jax_model.label_site),
+                       act_fn="softmax", T=jax_model.T)
+    pred = Predictor(t, batch_size=8, use_pallas=False, device="cpu")
+    ref = _jax_predictor(jax_model, use_pallas=False)
+    assert not pred.use_kernel and pred.use_pallas is False and ref.use_pallas is False
+    x = _requests()
+    np.testing.assert_allclose(pred.scores(x), ref.scores(x), rtol=RTOL, atol=ATOL)
+    on = Predictor(t, batch_size=8, use_pallas=True, device="cpu")
+    assert on.use_kernel and on.use_pallas
+    assert Predictor(t, use_kernel=True, use_pallas=True, device="cpu").use_kernel
+    with pytest.raises(ValueError, match="use_pallas"):
+        Predictor(t, use_kernel=True, use_pallas=False, device="cpu")
+    with pytest.raises(ValueError, match="use_pallas"):
+        Predictor(t, use_kernel=False, use_pallas=True, device="cpu")
+
+
 def test_activation_mode_softmax_rows_sum_to_one(jax_model):
     t = mps_from_numpy(np.asarray(jax_model.sites), np.asarray(jax_model.label_site),
                        act_fn="softmax", T=jax_model.T)

@@ -234,6 +234,36 @@ def test_hybrid_engine_matches_the_xla_engine(kw, jax_omega):
     assert kw.get("renorm_envs") or float(torch.linalg.vector_norm(sites.reshape(10, -1, 8), dim=1).max()) <= 1 + 1e-4
 
 
+@pytest.mark.parametrize("M", [192, 256])
+def test_hybrid_engine_runs_above_the_tpu_cap(M):
+    """The hybrid engine at M*D = 384 and 512, above the JAX package's
+    ``M*D <= 256`` cap (a VMEM limit of the TPU), against the port's xla
+    polar sweep and its fused sweep on the same model, batch and Omega. The
+    JAX package raises at these bonds, so no JAX comparison exists here."""
+    from tensornetworkforml_torch.models.mps import product_init
+
+    N, L, B = 5, 3, 8
+    rng = np.random.default_rng(M)
+    x = torch.as_tensor(rng.random((B, N)), dtype=torch.float32)
+    y1h = torch.as_tensor(np.eye(L, dtype=np.float32)[rng.integers(0, L, B)].T.copy())
+    t = product_init(torch.Generator().manual_seed(M), N=N, M=M, L=L, act_fn="linear",
+                     loss_fn="MSE", calibration_x=x.numpy(), device="cpu")
+    phi = psi_embed(x)
+    out = {e: tsw.sweep_once(t, phi, y1h, 0.05, 1e-4, tsw.SweepConfig(**_polar(e)))
+           for e in ("hybrid", "xla", "fused")}
+    fresh = psi_embed(torch.as_tensor(rng.random((8, N)), dtype=torch.float32))
+    got = out["hybrid"]
+    assert all(bool(torch.isfinite(a).all()) for a in (got[1], got[2], got[0].sites))
+    for other in ("xla", "fused"):
+        want = out[other]
+        for a, b, what in zip(got[1:3], want[1:3], ("f_first", "f_final")):
+            _close(a, b, SWEEP_TOL, f"{what} vs {other}")
+        _close(mps_forward(got[0], fresh), mps_forward(want[0], fresh), SWEEP_TOL,
+               f"fresh scores vs {other}")
+    for k in ("accuracy", "MAE", "mean_abs_B", "mean_abs_deltaB", "mean_abs_f"):
+        _close(got[3][k], out["xla"][3][k], SWEEP_TOL, k)
+
+
 def test_train_batch_matches_jax(jax_omega):
     import jax.numpy as jnp
 
@@ -330,10 +360,13 @@ def test_hybrid_engine_checks_its_configuration():
     with pytest.raises(ValueError, match="hybrid"):
         tsw.sweep_once(t, phi, y1h, 0.05, 0.0, tsw.SweepConfig(**_polar("hybrid",
                                                                           L2_flag=True)))
-    big = mps_from_numpy(np.zeros((4, 192, 2, 192), np.float32),
-                         np.zeros((192, 2, 2, 192), np.float32), device="cpu")
-    with pytest.raises(ValueError, match="M\\*D"):
-        tsw.sweep_once(big, phi[:, :4], y1h, 0.05, 0.0, tsw.SweepConfig(**_polar("hybrid")))
+    # no bond cap: M*D = 384 runs (the JAX package raises above 256)
+    rng = np.random.default_rng(0)
+    big = mps_from_numpy((np.eye(192)[None, :, None, :] + 1e-2 * rng.standard_normal(
+        (4, 192, 2, 192))).astype(np.float32), (np.eye(192)[:, None, None, :] + 1e-2 *
+        rng.standard_normal((192, 2, 2, 192))).astype(np.float32), device="cpu")
+    out = tsw.sweep_once(big, phi[:, :4], y1h, 0.05, 0.0, tsw.SweepConfig(**_polar("hybrid")))
+    assert all(bool(torch.isfinite(a).all()) for a in (out[0].sites, out[1], out[2]))
 
 
 def test_mirror_is_an_involution_and_the_label_must_sit_at_an_end():
