@@ -12,8 +12,9 @@ phase trains the same model at M=512. Phases:
   1. device  -- the card, as nvidia-smi reports its name and power limit;
   2. build   -- compile every CUDA kernel from csrc/ (one nvcc per source,
                 all started together) and print ptxas's report for each;
-                K4a and K4b's library must hold tf32 warpgroup products
-                (HGMMA) in its SASS;
+                the libraries of K4a, K4b and K5 (libpolar_sketch) and of K8
+                (libpolar_iterate) must hold tf32 warpgroup products (HGMMA)
+                in their SASS;
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 K3 (chain) at the serving shapes, K2 (pre-split step) and K1
                 (polar iteration) on the inputs of a mid-chain step of the
@@ -42,15 +43,16 @@ phase trains the same model at M=512. Phases:
                 sweep is held against the same sweep with K7's plain version
                 and against the xla-engine polar sweep;
   8. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
-                two-site matrix, held against hybrid_polar_split;
+                two-site matrix, held against hybrid_polar_split (and, in
+                phase 11, once on the M=512 step's two-site matrix);
   9. all-in-one split -- polar_split (K8) against its plain version on the
                 flagship step's two-site matrix and at a J that needs padding
                 with n_power=2, one call on the flagship matrix (1 launch),
                 held against polar_split_two_stage and hybrid_polar_split;
  10. rangefinder -- the flagship with svd_method="rangefinder" (bench.py's
                 high_m_rangefinder): K6 against its plain version on the
-                captured step's two-site matrix, a ragged shape, a shape whose
-                panel does not fit in shared memory and an edge step;
+                captured step's two-site matrix, a ragged shape, I=512 (the
+                rangefinder step at M=256) and an edge step;
                 train_model on 2 batches from prepare_dataset (K6 2 x 195
                 launches); one sweep held by quality against the same
                 sweep with the plain version, whose 195 splits are each
@@ -61,7 +63,9 @@ phase trains the same model at M=512. Phases:
                 svd) against a float64 exact split;
   11. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
                 against their plain versions on the two-site matrix of a
-                mid-chain step and at a ragged shape; train_model on 2
+                mid-chain step and at a ragged shape (K5's G exactly
+                symmetric); polar_split_two_stage once on that matrix (K5's
+                M=512 row of the kernels line); train_model on 2
                 batches through the factored route (no kernel launches); one
                 sweep with factored_update="off", whose gram-free split runs
                 K4a and K4b (3xTF32 on the tensor cores) 195 times each, held
@@ -69,8 +73,9 @@ phase trains the same model at M=512. Phases:
                 quality, against the factored one;
  12. timing  -- each kernel vs its plain version with CUDA events (plain,
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
-                yardstick call), ms per sweep on the three engines, on the
-                rangefinder split, on both M=512 routes and on the hybrid and
+                yardstick call; K5 at the flagship and at M=512), ms per sweep
+                on the three engines, on the rangefinder split (its profile
+                splitting K6 into its four launches), on both M=512 routes and on the hybrid and
                 xla engines at M=256, the device time of a profiled sweep of
                 each (and the host time of the M=512 ones; K4a + K4b's device
                 time in the gram-free one), Predictor samples/s, and for
@@ -82,9 +87,10 @@ Launch counts are set to 0 just before each path (serve, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
 train_model, the M=512 training and the M=512 gram-free sweep) and read just
 after it; the comparisons with plain versions happen outside those windows.
-K4a's and K4b's bound is 3xTF32's (three tensor-core products per float32
-one at the TF32 rate); their rows of the kernels line also give the float32
-bound and the share of the 3xTF32 bound the kernel reaches.
+K4a's, K4b's and K5's bound is 3xTF32's (three tensor-core products per
+float32 one at the TF32 rate), and K8's that of its K5 stage plus K1's float32
+iteration; their rows of the kernels line also give the float32 bound and the
+share of the 3xTF32 bound the kernel reaches.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing either, and any failed check exits
@@ -218,7 +224,8 @@ DEVICE = "cuda"
 # peak rates of one H100 SXM at 700 W: float32 outside the tensor cores, TF32
 # on the tensor cores (dense), HBM3
 F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67e12, 495e12, 3.35e12
-# K4a and K4b run in 3xTF32: three tensor-core products for each float32 one
+# K4a, K4b and K5 (and K8's first stage) run in 3xTF32: three tensor-core
+# products for each float32 one
 TC_PASSES = 3
 # The hybrid engine above the JAX package's M*D <= 256 cap: one sweep at
 # M=256 (I = 512, where K1 runs its L2-streaming form), held against the xla
@@ -241,6 +248,19 @@ M_WIDE = 256
 # the sweep: there the plain version itself exceeds K1_REC_TOL against
 # float64 at a few steps.
 WIDE_K1_RATIO = 2.0
+# polar_split_two_stage once at M=512 (K5 in 3xTF32, then K1's streaming
+# form at I = 1024, q = 512), held against hybrid_polar_split (cuBLAS's
+# float32 y and G, then K1) by the projector and the isometry at K1's limits.
+# Q R is held against a float64 run of the same split's plain version (the
+# same Omega; Q64): |Q Q^T B - Q64 Q64^T B| / max|B| of the two-stage split
+# within TWO_STAGE_RATIO of the hybrid split's. 3xTF32 carries about ten
+# times float32's error into G (K5's G reads 3.6e-5 of its max against
+# float64 here, the float32 plain version ~4e-6), and at this bond the two
+# splits' Q R then part by ~1e-4 of max|B| (1.02e-4, measured on an H100),
+# so K1_REC_TOL between them cannot tell a fault from rounding; against
+# float64 each split's distance is its own error, and a K5 as good as float32
+# sits near 1.
+TWO_STAGE_RATIO = 2.0
 
 
 def fail(msg: str) -> None:
@@ -301,19 +321,21 @@ def phase_build() -> None:
 
 
 def tensor_core_check() -> None:
-    """K4a and K4b must run on the tensor cores: their library's SASS holds
-    the tf32 warpgroup products (HGMMA ... TF32)."""
-    so = str(_build.library_path("polar_sketch"))
+    """K4a, K4b and K5 (libpolar_sketch) and K8's first stage (libpolar_iterate)
+    must run on the tensor cores: each library's SASS holds the tf32
+    warpgroup products (HGMMA ... TF32)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
-    if sass.returncode != 0:
-        fail(f"cuobjdump -sass on {os.path.basename(so)} exited {sass.returncode}")
-    mma = [ln.split(";")[0].split("*/")[-1].strip() for ln in sass.stdout.splitlines()
-           if "HGMMA" in ln and "TF32" in ln]
-    if not mma:
-        fail("K4a/K4b are not on the tensor cores: no HGMMA TF32 instruction in libpolar_sketch")
-    print(f"[build] K4a/K4b: libpolar_sketch SASS holds {len(mma)} tf32 tensor-core "
-          f"instructions (3xTF32 wgmma), e.g. {mma[0]}")
+    for name, kernels in (("polar_sketch", "K4a/K4b/K5"), ("polar_iterate", "K8's first stage")):
+        so = str(_build.library_path(name))
+        sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass on {os.path.basename(so)} exited {sass.returncode}")
+        mma = [ln.split(";")[0].split("*/")[-1].strip() for ln in sass.stdout.splitlines()
+               if "HGMMA" in ln and "TF32" in ln]
+        if not mma:
+            fail(f"{kernels} not on the tensor cores: no HGMMA TF32 instruction in lib{name}")
+        print(f"[build] {kernels}: lib{name} SASS holds {len(mma)} tf32 tensor-core "
+              f"instructions (3xTF32 wgmma), e.g. {mma[0]}")
 
 
 # ---- phase 3: each kernel against its plain version ------------------------
@@ -848,31 +870,49 @@ def phase_fused(mps0, x_tr, y_tr, x_fresh) -> dict:
 
 # ---- phases 8 and 9: the two-stage and the all-in-one polar splits -------------
 
-def phase_two_stage(captured) -> dict:
-    """polar_split_two_stage, the entry point that runs K5 then K1, on the
-    flagship step's two-site matrix, held against hybrid_polar_split with
-    K1's tolerances."""
-    bmat = captured["bmat"]
+def phase_two_stage(bmat, rank, what, against_f64=False) -> dict:
+    """polar_split_two_stage, the entry point that runs K5 then K1, on a
+    step's two-site matrix, held against hybrid_polar_split with K1's
+    tolerances (with ``against_f64``, Q R against a float64 run instead:
+    TWO_STAGE_RATIO)."""
     reset_counts()
-    q, r = polar_split.polar_split_two_stage(bmat, M)
+    q, r = polar_split.polar_split_two_stage(bmat, rank)
     torch.cuda.synchronize()
     launched = counts()
     if launched["polar_sketch_gram"] != 1 or launched["polar_iterate"] != 1:
         fail(f"polar_split_two_stage launched K5 {launched['polar_sketch_gram']} and K1 "
              f"{launched['polar_iterate']} times (want 1 each)")
-    qh, rh = polar_split.hybrid_polar_split(bmat, M)
+    qh, rh = polar_split.hybrid_polar_split(bmat, rank)
     if q.shape != qh.shape or r.shape != rh.shape or not (torch.isfinite(q).all()
                                                            and torch.isfinite(r).all()):
         fail(f"polar_split_two_stage gave {tuple(q.shape)}, {tuple(r.shape)} or non-finite values")
     proj, rec, iso = split_agreement(bmat, q, r, qh, rh)
-    ok = proj <= K1_PROJ_TOL and rec <= K1_REC_TOL and iso <= K1_ISO_TOL
-    print(f"[two-stage] polar_split_two_stage I={bmat.shape[0]} J={bmat.shape[1]} q={M} "
-          f"(flagship step {CAPTURE_STEP}): K5 launches 1, K1 launches 1; vs hybrid_polar_split "
-          f"|QQt-Q'Q't|={proj:.3g} (tol {K1_PROJ_TOL:g}) |QR-Q'R'|/max|B|={rec:.3g} (tol "
-          f"{K1_REC_TOL:g}) iso={iso:.3g} (tol {K1_ISO_TOL:g}) {'ok' if ok else 'FAIL'}")
+    ok = proj <= K1_PROJ_TOL and iso <= K1_ISO_TOL
+    if against_f64:
+        b64 = bmat.double()
+        om = svd_mod.rangefinder_omega(b64.shape[1], min(rank, b64.shape[0]), torch.float32,
+                                       bmat.device).double()
+        q64 = polar_split.polar_iterate_reference(
+            *polar_split.polar_sketch_gram_reference(b64, om))
+        exact = q64 @ (q64.T @ b64)
+        bmax = max(float(b64.abs().max()), 1e-30)
+        dist = [float((u.double() @ (u.double().T @ b64) - exact).abs().max()) / bmax
+                for u in (q, qh)]
+        ok = ok and dist[0] <= TWO_STAGE_RATIO * dist[1]
+        held = (f"|QR-Q'R'|/max|B|={rec:.3g} (printed); against a float64 run of the plain "
+                f"version, |QQtB - Q64Q64tB|/max|B|: two-stage {dist[0]:.3g}, hybrid "
+                f"{dist[1]:.3g}, ratio {dist[0] / max(dist[1], 1e-30):.3g} (tol {TWO_STAGE_RATIO:g})")
+    else:
+        ok = ok and rec <= K1_REC_TOL
+        held = f"|QR-Q'R'|/max|B|={rec:.3g} (tol {K1_REC_TOL:g})"
+    print(f"[two-stage] polar_split_two_stage I={bmat.shape[0]} J={bmat.shape[1]} q={rank} "
+          f"({what}): K5 launches 1, K1 launches 1; vs hybrid_polar_split "
+          f"|QQt-Q'Q't|={proj:.3g} (tol {K1_PROJ_TOL:g}) iso={iso:.3g} (tol {K1_ISO_TOL:g}) "
+          f"{held} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("polar_split_two_stage disagrees with hybrid_polar_split")
     return launched
+
 
 def split_agreement(bmat, q, r, qp, rp):
     """Two polar splits of ``bmat``: |QQt - Q'Q't|, |QR - Q'R'| / max|B| and
@@ -987,7 +1027,7 @@ def compare_rangefinder(name, bmat, rank) -> float:
     ok = k6_within(proj, rec, iso)
     I = bmat.shape[0]
     path = ("resident" if split_kernel._lib().tnml_rangefinder_resident(I, min(rank + 8, I))
-            else "global-panel")
+            else "global-memory")
     print(f"[kernel] rangefinder_split {name} rank={rank} ({path} path): live block "
           f"{n_live}/{rank} |QQt-Q'Q't|={proj:.3g} (tol {K1_PROJ_TOL:g}) |QR-Q'R'|/max|B|="
           f"{rec:.3g} (tol {K1_REC_TOL:g}) iso={iso:.3g} (tol {K1_ISO_TOL:g}) |Q-Q'|,|R-R'| "
@@ -1287,6 +1327,8 @@ def phase_large_kernels(large, captured) -> dict:
     errs.append({"polar_sketch_gram": compare_outputs(
         "polar_sketch_gram (y, G, n2)", f"flagship step {CAPTURE_STEP} I={M * D} "
         f"J={b128.shape[1]} q={M}", got, (b128, om128), polar_split.polar_sketch_gram_reference)})
+    if not torch.equal(got[1], got[1].T):
+        fail("flagship step: K5's Gram is not exactly symmetric")
     gen = torch.Generator().manual_seed(SEED + 5)
     ri, rj, rq = 77, 1000, 47  # ragged: I, J and q off every tile size, q odd
     b = torch.randn((ri, rj), generator=gen) / np.sqrt(rj)
@@ -1295,7 +1337,11 @@ def phase_large_kernels(large, captured) -> dict:
     y1_r = torch.linalg.qr(torch.randn((ri, rq), generator=gen))[0].contiguous()
     errs.append(compare_reductions(f"ragged I={ri} J={rj} q={rq}", b.to(DEVICE),
                                    om_r.to(DEVICE), y1_r.to(DEVICE)))
-    return {k: max(e[k] for e in errs if k in e) for k in errs[0]}
+    out = {k: max(e[k] for e in errs if k in e) for k in errs[0]}
+    # K5 has a row at the flagship shape (with the ragged one) and one at M=512
+    out["polar_sketch_gram"] = max(e["polar_sketch_gram"] for e in errs[1:])
+    out[("polar_sketch_gram", M_LARGE)] = errs[0]["polar_sketch_gram"]
+    return out
 
 
 def large_model(requests):
@@ -1457,6 +1503,16 @@ def tc_bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return bound_ms(TC_PASSES * flops, nbytes, TF32_FLOPS)
 
 
+def k8_bound_ms(I, J, q, pe) -> tuple[float, str]:
+    """K8's bound: its K5 stage in 3xTF32 (the tensor part three times over at
+    the TF32 rate) and K1's iteration at the float32 rate, one after the
+    other, against B and Omega read once and Q written once."""
+    t_ops = (TC_PASSES * sketch_work(I, J, q, True)[0] / TF32_FLOPS
+             + polar_work(I, q, *pe)[0] / F32_FLOPS)
+    t_bytes = polar_split_work(I, J, q, pe)[1] / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def chain_work(n, m, b):
     return 4.0 * n * b * m * m, 4.0 * (n * m * 2 * m + b * n + b * m)
 
@@ -1546,7 +1602,7 @@ PROFILE_KERNELS = {
     # reduce_kernel
     "K2": ("presplit::grad_kernel", "presplit::update_kernel", "presplit::reduce_kernel",
            "presplit::finish_kernel"),
-    "K4/K5": ("sketch_tile_kernel", "sketch_finish_kernel", "tc_gemm_kernel"),
+    "K4/K5": ("tc_gemm_kernel", "tc_sketch_gram_kernel", "split_sum_kernel"),
     # K7's own launches; its other six share K2's and K1's names, and K8's
     # launches are K5's and K1's (one source of device code for each)
     "K7": ("step_product_kernel", "step_scale_kernel"),
@@ -1556,10 +1612,10 @@ PROFILE_KERNELS = {
 FUSED_PROFILE = {"K7": PROFILE_KERNELS["K2"] + PROFILE_KERNELS["K1"] + PROFILE_KERNELS["K7"]}
 
 
-# K6's launches; its tile pass shares K4/K5's name, so a rangefinder sweep's
-# profile, where no K4 or K5 runs, counts it for K6
-RF_PROFILE = {"K6": ("rf_serial_kernel", "rf_finish_kernel", "rf_r_kernel",
-                     "sketch_tile_kernel")}
+# K6's four launches, apart: the tile pass, the scale, the subspace iteration
+# on the cluster, R = Q^T B
+RF_PROFILE = {"K6 tile pass": ("sketch_tile_kernel",), "K6 scale": ("rf_finish_kernel",),
+              "K6 cluster": ("rf_cluster_kernel",), "K6 R": ("rf_r_kernel",)}
 
 
 def profile_owner(name: str, groups=PROFILE_KERNELS):
@@ -1632,7 +1688,7 @@ def phase_rangefinder_timing(mps, captured, xb, yb) -> dict:
     qr_ms = cuda_ms(lambda: torch.linalg.qr(panel), reps=20)
     print(f"[context] torch.linalg.qr of K6's ({I}, {q_cols}) panel on the card: "
           f"{qr_ms * 1e3:.1f} us per call (K6 runs 7 such orthonormalisations and 6 products "
-          f"with G serially; context for a blocked redesign, not a yardstick)")
+          f"with G one after another; context, not a yardstick)")
     sweep_ms = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1643,8 +1699,14 @@ def phase_rangefinder_timing(mps, captured, xb, yb) -> dict:
     print(f"[timing] sweep engine=xla (rangefinder split, K6): {sweep_ms[0]:.1f} / "
           f"{sweep_ms[1]:.1f} ms, {BATCH / (sum(sweep_ms) / 2) * 1e3:.0f} samples/s")
     ms["rf_sweep"] = sum(sweep_ms) / 2
-    summarise_profile("rangefinder", device_time_table(lambda: rf_sweep(mps, xb, yb)),
-                      ms["rf_sweep"], groups=RF_PROFILE)
+    ours, busy = summarise_profile("rangefinder",
+                                   device_time_table(lambda: rf_sweep(mps, xb, yb)),
+                                   ms["rf_sweep"], groups=RF_PROFILE)
+    k6 = sum(ours.values())
+    print(f"[profile] rangefinder sweep: K6's four launches {k6:.1f} ms of {busy:.1f} ms device "
+          f"busy ({k6 / busy:.3f}); its cluster launch {ours['K6 cluster']:.1f} ms "
+          f"({ours['K6 cluster'] / busy:.3f} of busy, {ours['K6 cluster'] / k6:.3f} of K6), "
+          f"its other three {k6 - ours['K6 cluster']:.1f} ms")
     return ms
 
 
@@ -1819,7 +1881,8 @@ def main() -> None:
         errs[name] = max(errs[name], err)
     errs["two_site_step"] = phase_step_kernels(captured)
     launches["two_site_step"] = phase_fused(mps, x_tr, y_tr, x_fresh)["two_site_step"]
-    launches["polar_sketch_gram"] = phase_two_stage(captured)["polar_sketch_gram"]
+    launches["polar_sketch_gram"] = phase_two_stage(
+        captured["bmat"], M, f"flagship step {CAPTURE_STEP}")["polar_sketch_gram"]
     errs["polar_split"] = phase_polar_split_kernels(captured)
     launches["polar_split"] = phase_polar_split(captured)["polar_split"]
 
@@ -1836,6 +1899,9 @@ def main() -> None:
           f"{big.sites.numel() * 4 / 1e6:.1f} MB of sites")
     large = capture_large(big, xb, yb)
     errs.update(phase_large_kernels(large, captured))
+    launches[("polar_sketch_gram", M_LARGE)] = phase_two_stage(
+        large["bmat"], M_LARGE, f"M={M_LARGE} step {CAPTURE_STEP}",
+        against_f64=True)["polar_sketch_gram"]
     large_batch_s = phase_large_train(big, x_tr, y_tr, x_val, y_val)
     launched = phase_large_sweep(big, xb, yb, x_fresh, y_fresh)
     launches["gramfree_sketch"] = launched["gramfree_sketch"]
@@ -1860,21 +1926,29 @@ def main() -> None:
         "two_site_step": step_work(L, M, BATCH, pe),
         "polar_split": polar_split_work(M * D, L * D * M, M, pe),
     }
-    # K4a and K4b run in 3xTF32 on the tensor cores: their bound is the
-    # tensor part three times over at the TF32 rate; the float32 one is printed
-    # beside it
-    tensor_core = ("gramfree_sketch", "gramfree_gmul")
+    work[("polar_sketch_gram", M_LARGE)] = sketch_work(I_big, J_big, M_LARGE, True)
+    # K4a, K4b and K5 run in 3xTF32 on the tensor cores: their bound is the
+    # tensor part three times over at the TF32 rate; K8's is its K5 stage's so
+    # and K1's float32 iteration; the float32 bound is printed beside it
+    tensor_core = ("gramfree_sketch", "gramfree_gmul", "polar_sketch_gram",
+                   ("polar_sketch_gram", M_LARGE), "polar_split")
+
+    def bound(name):
+        if name == "polar_split":
+            return k8_bound_ms(M * D, L * D * M, M, pe)
+        return (tc_bound_ms if name in tensor_core else bound_ms)(*work[name])
+
     for name, (flops, nbytes) in list(work.items()) + [
-            ("right_env_chain B=8192", chain_work(N - 1, M, BIG)),
-            (f"polar_sketch_gram M={M_LARGE}", sketch_work(I_big, J_big, M_LARGE, True))]:
+            ("right_env_chain B=8192", chain_work(N - 1, M, BIG))]:
         b_ms, b_by = bound_ms(flops, nbytes)
-        line = (f"[bound] {name}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> f32 bound "
+        label = name if isinstance(name, str) else f"{name[0]} M={name[1]}"
+        line = (f"[bound] {label}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> f32 bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s and "
                 f"{HBM_BYTES / 1e12:g} TB/s")
         if name in tensor_core:
-            t_ms, t_by = tc_bound_ms(flops, nbytes)
-            line += (f"; 3xTF32 bound {t_ms * 1e3:.2f} us ({t_by}) at {TC_PASSES} x {flops:.3g} "
-                     f"FLOP and {TF32_FLOPS / 1e12:g} TFLOP/s; kernel {ms[name][0] * 1e3:.1f} us, "
+            t_ms, t_by = bound(name)
+            line += (f"; 3xTF32 bound {t_ms * 1e3:.2f} us ({t_by}) at {TC_PASSES} x the tensor "
+                     f"part and {TF32_FLOPS / 1e12:g} TFLOP/s; kernel {ms[name][0] * 1e3:.1f} us, "
                      f"3xTF32 bound / kernel = {t_ms / ms[name][0]:.3f}")
         print(line)
     rows = []
@@ -1891,6 +1965,8 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:334", "gramfree_gmul"),
         ("polar_sketch_gram", "polar_sketch.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:551", "polar_sketch_gram"),
+        ("polar_sketch_gram", "polar_sketch.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:551", ("polar_sketch_gram", M_LARGE)),
         ("rangefinder_split", "rangefinder_split.cu",
          "tensornetworkforml_tpu/ops/kernels/split_kernel.py:157", "rangefinder_split"),
         ("two_site_step", "two_site_step.cu",
@@ -1898,14 +1974,14 @@ def main() -> None:
         ("polar_split", "polar_iterate.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:192", "polar_split"),
     ):
-        b_ms, b_by = (tc_bound_ms if name in tensor_core else bound_ms)(*work[name])
+        b_ms, b_by = bound(key if key in tensor_core else name)
         row = {
             "name": name,
             "route": "cuda",
             "source": f"tensornetworkforml_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": errs[name],
+            "launches": launches[key if key in launches else name],
+            "max_abs_err": errs[key if key in errs else name],
             "ms": ms[key][0],
             "plain_ms": ms[key][1],
             "bound_ms": b_ms,
@@ -1914,8 +1990,12 @@ def main() -> None:
             # they compute
             "library_ms": ms[key][2],
         }
-        if name in tensor_core:  # the float32 bound beside the 3xTF32 one
-            row["bound_fp32_ms"] = bound_ms(*work[name])[0]
+        if name == "polar_sketch_gram":
+            row["shape"] = (f"I={I_big} J={J_big} q={M_LARGE}"
+                            if key == ("polar_sketch_gram", M_LARGE)
+                            else f"I={M * D} J={L * D * M} q={M}")
+        if key in tensor_core or name in tensor_core:  # the float32 bound beside the 3xTF32 one
+            row["bound_fp32_ms"] = bound_ms(*work[key if key in work else name])[0]
             row["bound_share"] = b_ms / ms[key][0]
         rows.append(row)
     print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "

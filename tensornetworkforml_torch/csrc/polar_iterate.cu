@@ -57,9 +57,9 @@
 // the same file. From the two-site matrix B (I, J) and the sketch Omega (J, q)
 // it computes y = B Omega, G = B B^T and n2 = |B|_F^2 (accumulated, not tr G),
 // then the iteration above with that n2: one C entry, two stages on one stream
-// with no host work between. The first stage is K5's tile pass and its
-// fixed-order finish (sketch_gram.cuh: G's upper triangle of 64 x 64 tiles,
-// mirrored), the second K1's launch. It sits here, not in a source of its own,
+// with no host work between. The first stage is K5's call (tc_gemm.cuh:
+// y and G's upper triangle of 128 x 128 tiles, mirrored, on the tensor cores
+// in 3xTF32, then the fixed-order sum), the second K1's launch. It sits here, not in a source of its own,
 // because its device code is exactly K5's and K1's, and a library of its own
 // would compile K1's two cluster kernels once more. The Pallas kernel's
 // J-tiling, its 2 MB block cap and its 128-column padding were Mosaic
@@ -72,26 +72,26 @@
 #include <cuda_runtime.h>
 
 #include "polar_iterate.cuh"
-#include "sketch_gram.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
 long round4(long n) { return (n + 3) / 4 * 4; }
 
 // The scratch of one K8 split, in floats, each part 16-byte aligned:
-// y (I, q), G (I, I), n2, the tile pass's partials, the iteration's scratch.
+// y (I, q), G (I, I), n2, K5's scratch, the iteration's scratch.
 struct SplitLayout {
   long y, g, n2, part, pol, floats;
 };
 
-SplitLayout split_layout(const Args& a) {
+SplitLayout split_layout(int I, int J, int q) {
   SplitLayout s;
   long o = 0;
-  s.y = o; o += round4((long)a.I * a.q);
-  s.g = o; o += round4((long)a.I * a.I);
+  s.y = o; o += round4((long)I * q);
+  s.g = o; o += round4((long)I * I);
   s.n2 = o; o += 4;
-  s.part = o; o += round4(partial_floats(a));
-  s.pol = o; o += polar::scratch_floats(a.I, a.q);
+  s.part = o; o += round4(tc::sketch_gram_scratch_floats(I, J, q));
+  s.pol = o; o += polar::scratch_floats(I, q);
   s.floats = o;
   return s;
 }
@@ -113,27 +113,19 @@ int tnml_polar_resident(int I, int q) { return polar::fits_resident(I, q); }
 
 // K8
 long tnml_polar_split_scratch_floats(int I, int J, int q) {
-  Args a{};
-  plan(a, I, J, q, true);
-  return split_layout(a).floats;
+  return split_layout(I, J, q).floats;
 }
 
 int tnml_polar_split(const float* b, const float* om, float* q_out, float* scratch, int I, int J,
                      int q, int n_power, const Coeffs* loop, const Coeffs* fin, float dead_tol,
                      void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
-  Args a{};
-  plan(a, I, J, q, true);
-  const SplitLayout s = split_layout(a);
-  a.b = b;
-  a.rhs = om;
-  a.y = scratch + s.y;
-  a.g = scratch + s.g;
-  a.n2 = scratch + s.n2;
-  const int err = launch_sketch(a, scratch + s.part, st);
+  const SplitLayout s = split_layout(I, J, q);
+  float *y = scratch + s.y, *g = scratch + s.g, *n2 = scratch + s.n2;
+  const int err = tc::sketch_gram(b, om, y, g, n2, scratch + s.part, I, J, q, st);
   if (err != 0) return err;
-  return polar::launch(a.y, a.g, a.n2, q_out, scratch + s.pol, I, q, n_power, loop, fin,
-                       dead_tol, st);
+  return polar::launch(y, g, n2, q_out, scratch + s.pol, I, q, n_power, loop, fin, dead_tol,
+                       st);
 }
 
 const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

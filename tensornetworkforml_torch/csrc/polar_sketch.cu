@@ -10,70 +10,42 @@
 // (I, I) sums in VMEM from one grid step to the next. Here every output is cut
 // into tiles whose k range is split over S blocks when the tiles alone cannot
 // fill the card; the S partial tiles are then added in a fixed order by a
-// second launch (sketch_finish_kernel). There are no float atomics: two
+// second launch (tc::split_sum_kernel). There are no float atomics: two
 // launches agree bit for bit.
 //
 // What bounds them on this card: the operations. At M = 512 (I = 1024,
-// J = 10240, q = 512) K4a is 1.07e10 FLOP against 65 MB of traffic and K4b
-// 2.15e10 against 46 MB; B (42 MB) fits the 50 MB L2.
+// J = 10240, q = 512) K4a is 1.07e10 FLOP against 65 MB of traffic, K4b
+// 2.15e10 against 46 MB and K5 2.15e10 (G as one triangle) against 67 MB;
+// B (42 MB) fits the 50 MB L2.
 //
-// Design:
-//   K4a, K4b  run on the tensor cores in 3xTF32 (tc_gemm.cuh: 128 x 128
-//             tiles, wgmma m64n128k8, a cp.async ring): each product within
-//             about ten times float32's error (tc_gemm.cuh), at up to
-//             3 x 495 / 67 ~ 2.5 times the float32 FMA rate's bound.
-//             K4a is y0 = B Omega; the y0 tiles of output column-tile 0 also
-//             sum the squares of the float32 B elements they load, so n2
-//             costs no second pass over B.
-//             K4b is t^T = y1^T B (q, J), k = I, into scratch (21 MB at
-//             M = 512), then z = B t, k = J, with t^T read K-major; both
-//             operands of the first half are transposed while they are split
-//             into hi and lo. Its blocks run in one wave, all walking their k
-//             ranges in step, so the chunks of B and t^T they share are read
-//             from L2 while hot.
-//   K5        sketch_tile_kernel (sketch_gram.cuh, shared with K6 and K8),
-//             every product a float32 FMA: G's upper triangle of 64 x 64
-//             tiles, each off-diagonal tile written twice (G and its mirror).
-// K4b is its launches together, counted as one kernel by its wrapper.
+// Design: all three run on the tensor cores in 3xTF32 (tc_gemm.cuh: 128 x 128
+// tiles, wgmma m64n128k8, a cp.async ring): each product within about ten
+// times float32's error (tc_gemm.cuh), at up to 3 x 495 / 67 ~ 2.5 times the
+// float32 FMA rate's bound.
+//   K4a  y0 = B Omega; the y0 tiles of output column-tile 0 also sum the
+//        squares of the float32 B elements they load, so n2 costs no second
+//        pass over B.
+//   K4b  t^T = y1^T B (q, J), k = I, into scratch (21 MB at M = 512), then
+//        z = B t, k = J, with t^T read K-major; both operands of the first
+//        half are transposed while they are split into hi and lo. Its blocks
+//        run in one wave, all walking their k ranges in step, so the chunks
+//        of B and t^T they share are read from L2 while hot.
+//   K5   y = B Omega as K4a, and G = B B^T from its upper triangle of tiles
+//        with both operands B read K-major, in one launch of one tile list
+//        (tc_sketch_gram_kernel) whose k split is planned from both tile
+//        counts together; each G tile writes its elements on and above the
+//        diagonal at (i, j) and (j, i), so G is symmetric bit for bit. K8's
+//        first stage (polar_iterate.cu) is this same call.
+// K4b and K5 are their launches together, each counted as one kernel by its
+// wrapper.
 
 #include <cuda_runtime.h>
 
-#include "sketch_gram.cuh"
+#include <algorithm>
+
 #include "tc_gemm.cuh"
 
 namespace {
-
-// the fixed-order sum of a tensor-core GEMM's S partial tiles (and of its
-// partial sums of squares, where n2 is wanted) into g.c, which is dense
-int finish(const tc::Gemm& g, float* n2, cudaStream_t stream) {
-  if (g.S == 1 && n2 == nullptr) return 0;
-  Args f{};
-  f.y = g.c;
-  f.yp = g.cp;
-  f.n2 = n2;
-  f.n2p = g.n2p;
-  f.I = g.M;
-  f.q = g.N;
-  f.nI = g.nM;
-  f.S = g.S;
-  sketch_finish_kernel<<<g.S > 1 ? cdiv((long)g.M * g.N, NT) : 1, NT, 0, stream>>>(f);
-  return (int)cudaGetLastError();
-}
-
-// K4a's GEMM: y0 (I, q) = B (I, J) Omega (J, q), k = J
-tc::Gemm sketch_plan(const float* b, const float* om, float* y0, int I, int J, int q) {
-  tc::Gemm g{};
-  tc::plan(g, I, q, J);
-  g.a = b;
-  g.lda = J;
-  g.a_vec = tc::aligned16(b, J);
-  g.b = om;
-  g.ldb = q;
-  g.b_vec = tc::aligned16(om, q);
-  g.c = y0;
-  g.ldc = q;
-  return g;
-}
 
 // K4b's halves: t^T (q, J) = y1^T B, k = I; z (I, q) = B t, k = J
 tc::Gemm gmul_first_plan(const float* b, const float* y1, float* tt, int I, int J, int q) {
@@ -110,15 +82,13 @@ extern "C" {
 
 // scratch of K5, in floats
 long tnml_sketch_scratch_floats(int I, int J, int q) {
-  Args a{};
-  plan(a, I, J, q, true);
-  return partial_floats(a);
+  return tc::sketch_gram_scratch_floats(I, J, q);
 }
 
 // scratch of K4a, in floats: the partial sums of squares, then the partials
 // of y0
 long tnml_gramfree_sketch_scratch_floats(int I, int J, int q) {
-  const tc::Gemm g = sketch_plan(nullptr, nullptr, nullptr, I, J, q);
+  const tc::Gemm g = tc::sketch_plan(nullptr, nullptr, nullptr, I, J, q);
   return (long)g.S * g.nM + tc::partial_floats(g);
 }
 
@@ -133,25 +103,18 @@ long tnml_gmul_scratch_floats(int I, int J, int q) {
 int tnml_gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch,
                          int I, int J, int q, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  tc::Gemm g = sketch_plan(b, om, y0, I, J, q);
+  tc::Gemm g = tc::sketch_plan(b, om, y0, I, J, q);
   g.n2p = scratch;
   g.cp = scratch + (size_t)g.S * g.nM;
   cudaError_t err = tc::launch<true, false>(g, st);
   if (err != cudaSuccess) return (int)err;
-  return finish(g, n2, st);
+  return tc::sum_splits(g, n2, nullptr, st);
 }
 
 // K5: y = B Omega, G = B B^T, n2 = |B|_F^2
 int tnml_sketch_gram(const float* b, const float* om, float* y, float* g, float* n2,
                      float* scratch, int I, int J, int q, void* stream) {
-  Args a{};
-  plan(a, I, J, q, true);
-  a.b = b;
-  a.rhs = om;
-  a.y = y;
-  a.g = g;
-  a.n2 = n2;
-  return launch_sketch(a, scratch, (cudaStream_t)stream);
+  return tc::sketch_gram(b, om, y, g, n2, scratch, I, J, q, (cudaStream_t)stream);
 }
 
 // K4b: z = B (B^T y1)
@@ -164,13 +127,13 @@ int tnml_gramfree_gmul(const float* b, const float* y1, float* z, float* scratch
   g1.cp = parts;
   cudaError_t err = tc::launch<false, false>(g1, st);
   if (err != cudaSuccess) return (int)err;
-  int e = finish(g1, nullptr, st);
+  int e = tc::sum_splits(g1, nullptr, nullptr, st);
   if (e != 0) return e;
   tc::Gemm g2 = gmul_second_plan(b, tt, z, I, J, q);
   g2.cp = parts;
   err = tc::launch<true, true>(g2, st);
   if (err != cudaSuccess) return (int)err;
-  return finish(g2, nullptr, st);
+  return tc::sum_splits(g2, nullptr, nullptr, st);
 }
 
 const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,11 +1,11 @@
-// The sketch-and-Gram tile pass over the columns of B (I, J), shared by the
-// port's kernels: y = B rhs (I, q), optionally G = B B^T (I, I), and partial
-// sums of |B|_F^2, as output tiles of 64 x 64 whose k range (the J axis) is
-// split over S blocks when the tiles alone cannot fill the card. With S > 1
-// the blocks write partial tiles, which the including kernel adds in split
-// order (sketch_finish_kernel, launched with it by launch_sketch).
-// polar_sketch.cu (K4a, K4b, K5), rangefinder_split.cu (K6, its tile pass
-// only) and polar_iterate.cu (K8's first stage) use it.
+// The sketch-and-Gram tile pass over the columns of B (I, J) of the
+// rangefinder split (K6, rangefinder_split.cu): y = B rhs (I, q), G = B B^T
+// (I, I) and partial sums of |B|_F^2, as float32 FMA output tiles
+// of 64 x 64 whose k range (the J axis) is split over S blocks when the tiles
+// alone cannot fill the card. With S > 1 the blocks write partial tiles,
+// which K6's next launch adds in split order. K6 alone uses it: K5 and K8's
+// first stage moved to the tensor cores (tc_gemm.cuh), while K6 keeps this
+// float32 pass, since its G is applied six times over.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,12 +28,12 @@ constexpr int MIN_CHUNK = 256;
 
 struct Args {
   const float* b;    // (I, J)
-  const float* rhs;  // (J, q): Omega, or t for K4b
+  const float* rhs;  // (J, q): Omega
   float* y;          // (I, q)
-  float* g;          // (I, I), or null: no Gram
-  float* n2;         // (1), or null: no norm
+  float* g;          // (I, I)
+  float* n2;         // (1)
   float* yp;         // S > 1: (S, I, q) partial tiles
-  float* gp;         // S > 1 and g: (S, I, I) partial tiles
+  float* gp;         // S > 1: (S, I, I) partial tiles
   float* n2p;        // (S, nI) partial norms
   int I, J, q;
   int nI, nQ;            // tile counts over I and q
@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(NT) sketch_tile_kernel(Args a) {
   int job = blockIdx.x;
   if (job < a.jobs_y) {
     const int it = job % a.nI, qt = job / a.nI;
-    const bool sq = a.n2 != nullptr && qt == 0;  // uniform over the block
+    const bool sq = qt == 0;  // uniform over the block
     const float* rhs = a.rhs + (size_t)k0 * q;
     float ss = 0.f;
     tile_gemm<T, T, TK, NT, true, false>(
@@ -109,14 +109,14 @@ __global__ void __launch_bounds__(NT) sketch_tile_kernel(Args a) {
     }
 }
 
-void plan(Args& a, int I, int J, int q, bool gram) {
+void plan(Args& a, int I, int J, int q) {
   a.I = I;
   a.J = J;
   a.q = q;
   a.nI = cdiv(I, T);
   a.nQ = cdiv(q, T);
   a.jobs_y = a.nI * a.nQ;
-  a.jobs_g = gram ? a.nI * (a.nI + 1) / 2 : 0;
+  a.jobs_g = a.nI * (a.nI + 1) / 2;
   const int tiles = a.jobs_y + a.jobs_g;
   const int S = std::max(1, std::min(cdiv(TARGET_BLOCKS, tiles), cdiv(J, MIN_CHUNK)));
   a.kc = cdiv(cdiv(J, S), TK) * TK;
@@ -125,50 +125,8 @@ void plan(Args& a, int I, int J, int q, bool gram) {
 
 long partial_floats(const Args& a) {
   long n = (long)a.S * a.nI;
-  if (a.S > 1) n += (long)a.S * a.I * a.q + (a.jobs_g ? (long)a.S * a.I * a.I : 0L);
+  if (a.S > 1) n += (long)a.S * a.I * a.q + (long)a.S * a.I * a.I;
   return n;
-}
-
-// adds the S partial tiles of y (and G) in split order, and the n2 partials
-// in a fixed tree order
-__global__ void __launch_bounds__(NT) sketch_finish_kernel(Args a) {
-  __shared__ float red[NT];
-  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
-  if (a.S > 1) {
-    const size_t Iq = (size_t)a.I * a.q, II = (size_t)a.I * a.I;
-    if (e < Iq) {
-      float v = 0.f;
-      for (int p = 0; p < a.S; ++p) v += a.yp[p * Iq + e];
-      a.y[e] = v;
-    }
-    if (a.g != nullptr && e < II) {
-      float v = 0.f;
-      for (int p = 0; p < a.S; ++p) v += a.gp[p * II + e];
-      a.g[e] = v;
-    }
-  }
-  if (a.n2 != nullptr && blockIdx.x == 0) {
-    float v = 0.f;
-    for (int p = threadIdx.x; p < a.S * a.nI; p += NT) v += a.n2p[p];
-    v = block_sum<NT>(v, red);
-    if (threadIdx.x == 0) *a.n2 = v;
-  }
-}
-
-// the tile pass and, where the J range is split or n2 is wanted, the fixed-order
-// sum; `a` is planned and its inputs and outputs set, `scratch` holds
-// partial_floats(a)
-int launch_sketch(Args& a, float* scratch, cudaStream_t stream) {
-  a.n2p = scratch;
-  a.yp = a.n2p + (size_t)a.S * a.nI;
-  a.gp = a.yp + (a.S > 1 ? (size_t)a.S * a.I * a.q : 0);
-  sketch_tile_kernel<<<dim3(a.jobs_y + a.jobs_g, a.S), NT, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (a.S == 1 && a.n2 == nullptr) return 0;
-  const long n_out = std::max((long)a.I * a.q, a.g != nullptr ? (long)a.I * a.I : 0L);
-  sketch_finish_kernel<<<a.S > 1 ? cdiv(n_out, NT) : 1, NT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -1,12 +1,17 @@
 // A float32 block GEMM on Hopper's tensor cores in 3xTF32, for the port's
-// J-streaming reductions K4a and K4b (polar_sketch.cu).
+// J-streaming reductions K4a, K4b and K5 (polar_sketch.cu) and K8's first
+// stage (polar_iterate.cu).
 //
 // One block of two warpgroups (256 threads) computes a 128 x 128 tile of
 //   C (M, N) = sum_k A(m, k) B(n, k)
 // over one k range [k0, k0 + klen). Each operand is read either with its k
 // index contiguous in memory (KCONT: A(m, k) = a[m * lda + k]) or with its
 // m / n index contiguous (A(m, k) = a[k * lda + m]), so one core serves
-// y0 = B Omega, t^T = y1^T B and z = B t.
+// y0 = B Omega, t^T = y1^T B, z = B t and G = B B^T. For G only the tiles of
+// the upper triangle run, and each writes its elements on and above the
+// diagonal at both (i, j) and (j, i): G is symmetric bit for bit, the
+// diagonal tiles too (wgmma's accumulation order is not symmetric, so their
+// two halves would not agree otherwise).
 //
 // Precision: 3xTF32, close to float32 but not equal to it. Each operand value
 // x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna.tf32.f32), and
@@ -46,6 +51,7 @@
 
 #include "tile_gemm.cuh"  // block_sum
 
+namespace {
 namespace tc {
 
 constexpr int NT = 256;            // two warpgroups
@@ -62,7 +68,7 @@ constexpr size_t SMEM_BYTES = sizeof(float) * (STAGES * 2 * RAW + 4 * CONV);
 // target, not the card's SM count, so the summation order and the result
 // depend on the shape alone.
 constexpr int TARGET_BLOCKS = 264;
-constexpr int MIN_CHUNK = 256;
+constexpr int MIN_CHUNK = 128;
 
 struct Gemm {
   const float* a;   // A(m, k)
@@ -78,18 +84,22 @@ struct Gemm {
 
 inline int cdiv_l(long a, long b) { return (int)((a + b - 1) / b); }
 
+// split the k range of g for a launch of `tiles` output tiles
+inline void split_k(Gemm& g, int tiles) {
+  int S = TARGET_BLOCKS / tiles;
+  if (S > cdiv_l(g.K, MIN_CHUNK)) S = cdiv_l(g.K, MIN_CHUNK);
+  if (S < 1) S = 1;
+  g.kc = cdiv_l(cdiv_l(g.K, S), BK) * BK;
+  g.S = cdiv_l(g.K, g.kc);
+}
+
 inline void plan(Gemm& g, int M, int N, int K) {
   g.M = M;
   g.N = N;
   g.K = K;
   g.nM = cdiv_l(M, BM);
   g.nN = cdiv_l(N, BN);
-  const int tiles = g.nM * g.nN;
-  int S = TARGET_BLOCKS / tiles;
-  if (S > cdiv_l(K, MIN_CHUNK)) S = cdiv_l(K, MIN_CHUNK);
-  if (S < 1) S = 1;
-  g.kc = cdiv_l(cdiv_l(K, S), BK) * BK;
-  g.S = cdiv_l(K, g.kc);
+  split_k(g, g.nM * g.nN);
 }
 
 // floats of the (S, M, N) partials, 0 when the k range is not split
@@ -259,19 +269,18 @@ __device__ __forceinline__ void convert_chunk(const float* raw, float* hi, float
   }
 }
 
-// one block: output tile blockIdx.x (m tiles fastest) over k split blockIdx.y
-template <bool A_KCONT, bool B_KCONT>
-__global__ void __launch_bounds__(NT, 2) tc_gemm_kernel(Gemm g) {
-  extern __shared__ __align__(128) float smem[];
+// one block: output tile (mt, nt) over k split s; with MIRROR (a tile of G's
+// upper triangle, M == N) each element on or above the diagonal is written at
+// (row, col) and (col, row)
+template <bool A_KCONT, bool B_KCONT, bool MIRROR>
+__device__ __forceinline__ void gemm_tile(const Gemm& g, int mt, int nt, int s, float* smem,
+                                          float* red) {
   float* raw = smem;                         // STAGES x (A chunk, B chunk)
   float* conv = smem + STAGES * 2 * RAW;     // A hi, A lo, B hi, B lo
   float* a_hi = conv;
   float* a_lo = conv + CONV;
   float* b_hi = conv + 2 * CONV;
   float* b_lo = conv + 3 * CONV;
-  __shared__ float red[NT];
-
-  const int mt = blockIdx.x % g.nM, nt = blockIdx.x / g.nM, s = blockIdx.y;
   const int m0 = mt * BM, n0 = nt * BN;
   const int k0 = s * g.kc, kend = min(g.K, k0 + g.kc);
   const int nk = (kend - k0 + BK - 1) / BK;
@@ -342,8 +351,18 @@ __global__ void __launch_bounds__(NT, 2) tc_gemm_kernel(Gemm g) {
     for (int h = 0; h < 2; ++h) {
       const int row = r_base + 8 * h;
       if (row < g.M) {
-        if (col < g.N) out[(size_t)row * ldc + col] = d[4 * j + 2 * h];
-        if (col + 1 < g.N) out[(size_t)row * ldc + col + 1] = d[4 * j + 2 * h + 1];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int cu = col + u;
+          const float v = d[4 * j + 2 * h + u];
+          if (cu >= g.N) continue;
+          if (!MIRROR) {
+            out[(size_t)row * ldc + cu] = v;
+          } else if (row <= cu) {
+            out[(size_t)row * ldc + cu] = v;
+            out[(size_t)cu * ldc + row] = v;
+          }
+        }
       }
     }
   }
@@ -351,6 +370,102 @@ __global__ void __launch_bounds__(NT, 2) tc_gemm_kernel(Gemm g) {
     ss = block_sum<NT>(ss, red);
     if (threadIdx.x == 0) g.n2p[s * g.nM + mt] = ss;
   }
+}
+
+template <bool A_KCONT, bool B_KCONT>
+__global__ void __launch_bounds__(NT, 2) tc_gemm_kernel(Gemm g) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ float red[NT];
+  gemm_tile<A_KCONT, B_KCONT, false>(g, blockIdx.x % g.nM, blockIdx.x / g.nM, blockIdx.y, smem,
+                                     red);
+}
+
+// tile t of the upper triangle of an n x n tile grid, row by row: (it, jt), it <= jt
+__device__ __forceinline__ void tri_tile(int t, int n, int& it, int& jt) {
+  it = 0;
+  while (t >= n - it) {
+    t -= n - it;
+    ++it;
+  }
+  jt = it + t;
+}
+
+// K5: one launch of one tile list over k split blockIdx.y. Blocks
+// [0, y.nM y.nN) are the tiles of y = B Omega (Omega's n index contiguous;
+// the tiles of column-tile 0 also sum n2's squares), the rest the upper
+// triangle of G = B B^T (both operands B, k contiguous), mirrored.
+__global__ void __launch_bounds__(NT, 2) tc_sketch_gram_kernel(Gemm y, Gemm gram) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ float red[NT];
+  const int ny = y.nM * y.nN, t = blockIdx.x;
+  if (t < ny) {
+    gemm_tile<true, false, false>(y, t % y.nM, t / y.nM, blockIdx.y, smem, red);
+  } else {
+    int it, jt;
+    tri_tile(t - ny, gram.nM, it, jt);
+    gemm_tile<true, true, true>(gram, it, jt, blockIdx.y, smem, red);
+  }
+}
+
+// The fixed-order sum of S partial tiles of y (and of G) and of y's partial
+// sums of squares into n2: each element adds its S partials in split order;
+// n2 adds its partials in one fixed tree order.
+struct Sums {
+  float* y;
+  const float* yp;
+  long ny;
+  float* g;  // or null
+  const float* gp;
+  long ng;
+  float* n2;  // or null
+  const float* n2p;
+  int nn2, S;
+};
+
+__global__ void __launch_bounds__(NT) split_sum_kernel(Sums f) {
+  __shared__ float red[NT];
+  const long e = (long)blockIdx.x * NT + threadIdx.x;
+  if (f.S > 1) {
+    if (e < f.ny) {
+      float v = 0.f;
+      for (int p = 0; p < f.S; ++p) v += f.yp[p * f.ny + e];
+      f.y[e] = v;
+    }
+    if (f.g != nullptr && e < f.ng) {
+      float v = 0.f;
+      for (int p = 0; p < f.S; ++p) v += f.gp[p * f.ng + e];
+      f.g[e] = v;
+    }
+  }
+  if (f.n2 != nullptr && blockIdx.x == 0) {
+    float v = 0.f;
+    for (int p = threadIdx.x; p < f.nn2; p += NT) v += f.n2p[p];
+    v = block_sum<NT>(v, red);
+    if (threadIdx.x == 0) *f.n2 = v;
+  }
+}
+
+// after y's launch (and gram's, in the same k split): the sum of the split
+// partials into y.c (and gram->c), which are dense, and of the partial sums
+// of squares into n2 where it is wanted; nothing when neither is needed
+inline int sum_splits(const Gemm& y, float* n2, const Gemm* gram, cudaStream_t stream) {
+  if (y.S == 1 && n2 == nullptr) return 0;
+  Sums f{};
+  f.y = y.c;
+  f.yp = y.cp;
+  f.ny = (long)y.M * y.N;
+  f.n2 = n2;
+  f.n2p = y.n2p;
+  f.nn2 = y.S * y.nM;
+  f.S = y.S;
+  if (gram != nullptr) {
+    f.g = gram->c;
+    f.gp = gram->cp;
+    f.ng = (long)gram->M * gram->N;
+  }
+  const long n = f.ny > f.ng ? f.ny : f.ng;
+  split_sum_kernel<<<y.S > 1 ? cdiv_l(n, NT) : 1, NT, 0, stream>>>(f);
+  return (int)cudaGetLastError();
 }
 
 template <bool A_KCONT, bool B_KCONT>
@@ -367,4 +482,74 @@ cudaError_t launch(const Gemm& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// K5's plan: y = B Omega (I, q) with n2's partial sums, and G = B B^T (I, I)
+// by its upper triangle of tiles, over one k split (J) chosen from both tile
+// counts together
+struct SketchGram {
+  Gemm y, g;
+};
+
+// y (I, q) = B (I, J) Omega (J, q), k = J: K4a's GEMM, and K5's y
+inline Gemm sketch_plan(const float* b, const float* om, float* y, int I, int J, int q) {
+  Gemm g{};
+  plan(g, I, q, J);
+  g.a = b;
+  g.lda = J;
+  g.a_vec = aligned16(b, J);
+  g.b = om;
+  g.ldb = q;
+  g.b_vec = aligned16(om, q);
+  g.c = y;
+  g.ldc = q;
+  return g;
+}
+
+inline SketchGram sketch_gram_plan(const float* b, const float* om, float* y, float* gm, int I,
+                                   int J, int q) {
+  SketchGram p{};
+  p.y = sketch_plan(b, om, y, I, J, q);
+  plan(p.g, I, I, J);
+  p.g.a = b;
+  p.g.lda = J;
+  p.g.a_vec = p.y.a_vec;
+  p.g.b = b;
+  p.g.ldb = J;
+  p.g.b_vec = p.y.a_vec;
+  p.g.c = gm;
+  p.g.ldc = I;
+  const int tiles = p.y.nM * p.y.nN + p.g.nM * (p.g.nM + 1) / 2;
+  split_k(p.y, tiles);
+  split_k(p.g, tiles);
+  return p;
+}
+
+// K5's scratch, in floats: n2's partial sums, then the partials of y and of G
+inline long sketch_gram_scratch_floats(int I, int J, int q) {
+  const SketchGram p = sketch_gram_plan(nullptr, nullptr, nullptr, nullptr, I, J, q);
+  return (long)p.y.S * p.y.nM + partial_floats(p.y) + partial_floats(p.g);
+}
+
+// K5: y = B Omega, G = B B^T (exactly symmetric), n2 = |B|_F^2; one tile
+// launch, then the fixed-order sum
+inline int sketch_gram(const float* b, const float* om, float* y, float* gm, float* n2,
+                       float* scratch, int I, int J, int q, cudaStream_t stream) {
+  SketchGram p = sketch_gram_plan(b, om, y, gm, I, J, q);
+  p.y.n2p = scratch;
+  p.y.cp = scratch + (size_t)p.y.S * p.y.nM;
+  p.g.cp = p.y.cp + partial_floats(p.y);
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tc_sketch_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const int tiles = p.y.nM * p.y.nN + p.g.nM * (p.g.nM + 1) / 2;
+  tc_sketch_gram_kernel<<<dim3(tiles, p.y.S), NT, SMEM_BYTES, stream>>>(p.y, p.g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sum_splits(p.y, n2, &p.g, stream);
+}
+
 }  // namespace tc
+}  // namespace

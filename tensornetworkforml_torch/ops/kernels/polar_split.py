@@ -27,13 +27,14 @@ kernel ``polar_iterate_pallas``); on a CPU tensor it runs the plain version
 as plain products in between. ``polar_split_two_stage`` is the split as
 ``polar_sketch_gram`` (K5: ``y``, ``G`` and ``n2`` in one pass over B)
 followed by K1. The three reductions are ``csrc/polar_sketch.cu`` on a card
-(K4a and K4b on the tensor cores in 3xTF32, ``csrc/tc_gemm.cuh``; K5 in
-float32 FMAs) and their ``*_reference`` plain versions on the CPU.
+(all three on the tensor cores in 3xTF32, ``csrc/tc_gemm.cuh``; K5's G from
+its upper triangle of tiles, mirrored, so exactly symmetric) and their
+``*_reference`` plain versions on the CPU.
 
 ``polar_split`` is the all-in-one split (K8, the counterpart of the JAX
 package's ``polar_split_pallas``): the sketch, the Gram and ``n2`` in one pass
 over B, then ``n_power`` rounds of the iteration, as one C entry on a card
-(``tnml_polar_split`` in ``csrc/polar_iterate.cu``: K5's tile pass, then K1's
+(``tnml_polar_split`` in ``csrc/polar_iterate.cu``: K5's call, then K1's
 launch), and ``polar_split_reference`` on the CPU;
 ``R = Q^T B`` is a plain float32 product. No sweep reaches it; its split is the
 one inside K7 (``ops/kernels/step_kernel.py``, ``engine="fused"``).
@@ -60,8 +61,8 @@ _PE_FINAL = (1e-7, 1e-7)
 # directions of the squared spectrum start near 4e-8
 _PE_FINAL_GRAMFREE = (1e-8, 1e-7)
 _MAX_PASSES = 64  # coefficient slots of the kernel's parameter block
-# the split methods' products all run in float32 here, apart from K4a and
-# K4b, which run in 3xTF32 on the tensor cores (within about ten times
+# the split methods' products all run in float32 here, apart from K4a, K4b
+# and K5, which run in 3xTF32 on the tensor cores (within about ten times
 # float32's error); a reduced precision for the rest is an open numerics
 # decision
 _FULL_F32 = ("default", "highest")
@@ -360,8 +361,11 @@ def _on_card(name: str, bmat: torch.Tensor, other: torch.Tensor, rows: int) -> b
 
 def _run(name: str, bmat: torch.Tensor, launch) -> None:
     lib = _sketch_lib()
-    with torch.cuda.device(bmat.device):
+    if bmat.device.index == torch.cuda.current_device():
         err = launch(lib, torch.cuda.current_stream(bmat.device).cuda_stream)
+    else:
+        with torch.cuda.device(bmat.device):
+            err = launch(lib, torch.cuda.current_stream(bmat.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{name} kernel failed: cudaError {err} ({lib.tnml_cuda_error_string(err).decode()})"
@@ -370,6 +374,12 @@ def _run(name: str, bmat: torch.Tensor, launch) -> None:
 
 def _scratch(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.empty((n,), dtype=torch.float32, device=like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(fn: str, I: int, J: int, q: int) -> int:
+    """Scratch floats of one of ``polar_sketch.cu``'s entries at a shape."""
+    return getattr(_sketch_lib(), fn)(I, J, q)
 
 
 def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
@@ -386,8 +396,7 @@ def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
     (I, J), q = bmat.shape, om.shape[1]
     y0 = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
     n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
-    lib = _sketch_lib()
-    scratch = _scratch(lib.tnml_gramfree_sketch_scratch_floats(I, J, q), bmat)
+    scratch = _scratch(_scratch_floats("tnml_gramfree_sketch_scratch_floats", I, J, q), bmat)
     _run("gramfree_sketch", bmat, lambda lib, stream: lib.tnml_gramfree_sketch(
         bmat.data_ptr(), om.data_ptr(), y0.data_ptr(), n2.data_ptr(), scratch.data_ptr(),
         I, J, q, stream))
@@ -408,8 +417,7 @@ def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
         return gramfree_gmul_reference(bmat, y1)
     (I, J), q = bmat.shape, y1.shape[1]
     z = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
-    lib = _sketch_lib()
-    scratch = _scratch(lib.tnml_gmul_scratch_floats(I, J, q), bmat)
+    scratch = _scratch(_scratch_floats("tnml_gmul_scratch_floats", I, J, q), bmat)
     _run("gramfree_gmul", bmat, lambda lib, stream: lib.tnml_gramfree_gmul(
         bmat.data_ptr(), y1.data_ptr(), z.data_ptr(), scratch.data_ptr(), I, J, q, stream))
     gramfree_gmul.launches += 1
@@ -418,7 +426,9 @@ def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
 
 def polar_sketch_gram(bmat: torch.Tensor, om: torch.Tensor):
     """K5: ``y = B om (I, q)``, ``G = B B^T (I, I)`` and ``n2 = |B|_F^2
-    (1, 1)`` in one pass over ``bmat (I, J)``.
+    (1, 1)`` in one pass over ``bmat (I, J)``. On the card the products run
+    on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``), within about ten
+    times float32's error, and G is exactly symmetric.
 
     CPU tensors run ``polar_sketch_gram_reference``. CUDA tensors must be
     float32 and contiguous and launch the kernel; each launch adds one to
@@ -427,11 +437,10 @@ def polar_sketch_gram(bmat: torch.Tensor, om: torch.Tensor):
     if not _on_card("polar_sketch_gram", bmat, om, 1):
         return polar_sketch_gram_reference(bmat, om)
     (I, J), q = bmat.shape, om.shape[1]
-    y = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
-    g = torch.empty((I, I), dtype=torch.float32, device=bmat.device)
-    n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
-    lib = _sketch_lib()
-    scratch = _scratch(lib.tnml_sketch_scratch_floats(I, J, q), bmat)
+    # y, G and n2 in one allocation
+    y, g, n2 = _scratch(I * q + I * I + 1, bmat).split([I * q, I * I, 1])
+    y, g, n2 = y.view(I, q), g.view(I, I), n2.view(1, 1)
+    scratch = _scratch(_scratch_floats("tnml_sketch_scratch_floats", I, J, q), bmat)
     _run("polar_sketch_gram", bmat, lambda lib, stream: lib.tnml_sketch_gram(
         bmat.data_ptr(), om.data_ptr(), y.data_ptr(), g.data_ptr(), n2.data_ptr(),
         scratch.data_ptr(), I, J, q, stream))

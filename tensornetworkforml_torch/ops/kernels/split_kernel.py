@@ -18,7 +18,11 @@ gets the identity reflector.
 
 On a CUDA tensor ``rangefinder_split`` launches the hand-written kernel
 ``csrc/rangefinder_split.cu`` (the counterpart of the JAX package's Pallas
-kernel ``rangefinder_split_pallas``); on a CPU tensor it runs the plain
+kernel ``rangefinder_split_pallas``): the subspace iteration runs on one
+cluster of 16 CTAs as a blocked Householder QR, which re-associates the
+reflectors of ``hqr_orth`` (the same function, float32 rounding apart), and
+takes I up to the rows its panels can be factored in
+(``tnml_rangefinder_max_rows``, 2048). On a CPU tensor it runs the plain
 version ``rangefinder_split_plain``. The JAX module's ``_ns_orth`` (a
 Newton-Schulz orthonormalisation) is never called there and has no
 counterpart here.
@@ -103,6 +107,8 @@ def _lib() -> ctypes.CDLL:
         lib.tnml_rangefinder_scratch_floats.restype = ctypes.c_long
         lib.tnml_rangefinder_resident.argtypes = [i, i]
         lib.tnml_rangefinder_resident.restype = ctypes.c_int
+        lib.tnml_rangefinder_max_rows.argtypes = []
+        lib.tnml_rangefinder_max_rows.restype = ctypes.c_int
         lib.tnml_cuda_error_string.argtypes = [i]
         lib.tnml_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -133,12 +139,15 @@ def rangefinder_split(
     if n_iter < 0 or mid_orth < 0 or oversample < 0:
         raise ValueError(f"n_iter, mid_orth and oversample must be >= 0, got "
                          f"{n_iter}, {mid_orth}, {oversample}")
+    lib = _lib()
+    if I > lib.tnml_rangefinder_max_rows():
+        raise ValueError(f"the CUDA kernel takes at most {lib.tnml_rangefinder_max_rows()} rows "
+                         f"(its panels are factored in registers), got I = {I}")
     q_cols = min(rank + oversample, I)
     b32 = bmat.to(torch.float32).contiguous()
     om = _svd.rangefinder_omega(J, q_cols, torch.float32, bmat.device).contiguous()
     q = torch.empty((I, rank), dtype=torch.float32, device=bmat.device)
     r = torch.empty((rank, J), dtype=torch.float32, device=bmat.device)
-    lib = _lib()
     scratch = torch.empty((lib.tnml_rangefinder_scratch_floats(I, J, q_cols),),
                           dtype=torch.float32, device=bmat.device)
     with torch.cuda.device(bmat.device):

@@ -325,11 +325,40 @@ def test_3xtf32_holds_the_card_limit_where_tf32_alone_does_not():
     assert np.all(np.abs((hi.astype(np.float64) + lo) - x) <= 2.0 ** -21 * np.abs(x))
 
 
+def _mirrored(p):
+    """K5's G from a full product: each element on or above the diagonal (of
+    the upper triangle's tiles) written at (i, j) and (j, i)."""
+    g = np.triu(p)
+    return g + np.triu(g, 1).T
+
+
+@pytest.mark.parametrize("shape", [(64, 384, 32), (256, 2560, 128)])
+def test_3xtf32_gram_is_symmetric_and_holds_the_card_limit(shape):
+    """A numpy emulation of K5's G on the card: the 3xTF32 product, its upper
+    triangle mirrored, is exactly symmetric and within CARD_TOL of its max
+    against float64 on an ill-scaled B, and an order of magnitude closer than
+    TF32 alone. TF32 alone reads below CARD_TOL on G too (its largest entries
+    are sums of squares, whose roundings do not add up), so on K5 the limit
+    tells the two forms apart by y, as on K4a."""
+    I, J, q = shape
+    b, om, _ = _ill_scaled(I, J, q, seed=q)
+    b64 = b.astype(np.float64)
+    want_g, want_y = b64 @ b64.T, b64 @ om
+    bt = np.ascontiguousarray(b.T)
+    g3 = _mirrored(_mm_3xtf32(b, bt))
+    g1 = _mirrored(_mm_tf32(b, bt))
+    assert np.array_equal(g3, g3.T)
+    assert _rel(g3, want_g) < CARD_TOL
+    assert _rel(g3, want_g) < _rel(g1, want_g) / 10
+    assert _rel(_mm_3xtf32(b, om), want_y) < CARD_TOL < _rel(_mm_tf32(b, om), want_y)
+
+
 # ---- on the card ---------------------------------------------------------------
 
-# the M = 512 two-site matrix (I = 2M, J = L D M, q = M), and a ragged shape
-# with J off the tile, q odd and zero columns
-CARD_SHAPES = {"m512": (1024, 10240, 512, ()), "ragged": (77, 1000, 47, (0, 3, 999))}
+# the flagship two-site matrix (I = 2M, J = L D M, q = M at M = 128), the
+# M = 512 one, and a ragged shape with J off the tile, q odd and zero columns
+CARD_SHAPES = {"flagship": (256, 2560, 128, ()), "m512": (1024, 10240, 512, ()),
+               "ragged": (77, 1000, 47, (0, 3, 999))}
 
 
 def _card_inputs(shape, cuda):
@@ -372,23 +401,31 @@ def test_kernels_match_plain_on_card(shape, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
 def test_tensor_core_kernels_hold_the_card_limit_on_an_ill_scaled_b(shape, cuda):
-    """K4a and K4b (3xTF32 on the tensor cores) on a B whose row scales span
-    1e-3 to 1e3: each output within CARD_TOL of its max against the float64
-    plain version. Control: the same products through cuBLAS with TF32
-    allowed (TF32 alone) read above CARD_TOL, so the limit tells the two
-    forms apart at these shapes."""
+    """K4a, K4b and K5 (3xTF32 on the tensor cores) on a B whose row scales
+    span 1e-3 to 1e3: each output within CARD_TOL of its max against the
+    float64 plain version, K5's G exactly symmetric and two launches
+    bit-identical. Control: the same products through cuBLAS with TF32
+    allowed (TF32 alone) read above CARD_TOL on y0 and z, so the limit tells
+    the two forms apart at these shapes (on G it does not: its largest
+    entries are sums of squares whose TF32 roundings do not add up, see the
+    emulation above)."""
     I, J, q, dead = CARD_SHAPES[shape]
     b, om, y1 = _ill_scaled(I, J, q, seed=q)
     b[:, list(dead)] = 0.0
     b, om, y1 = (torch.as_tensor(a).to(cuda) for a in (b, om, y1))
     y0, n2 = tps.gramfree_sketch(b, om)
     z = tps.gramfree_gmul(b, y1)
+    sk = tps.polar_sketch_gram(b, om)
     torch.cuda.synchronize()
     w_y0, w_n2 = tps.gramfree_sketch_reference(b.double(), om.double())
     w_z = tps.gramfree_gmul_reference(b.double(), y1.double())
     _held(y0, w_y0)
     _held(n2, w_n2)
     _held(z, w_z)
+    for got, want in zip(sk, tps.polar_sketch_gram_reference(b.double(), om.double())):
+        _held(got, want)
+    assert torch.equal(sk[1], sk[1].T)
+    assert all(torch.equal(u, v) for u, v in zip(sk, tps.polar_sketch_gram(b, om)))
     allowed = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -400,12 +437,14 @@ def test_tensor_core_kernels_hold_the_card_limit_on_an_ill_scaled_b(shape, cuda)
 
 
 @pytest.mark.cuda
-def test_gramfree_reductions_run_on_the_tensor_cores(cuda):
-    """K4a and K4b's built library holds Hopper's tf32 warpgroup products
-    (``HGMMA ... TF32`` in its SASS), not only float32 FMAs."""
-    tps._sketch_lib()  # builds the library
+@pytest.mark.parametrize("name", ["polar_sketch", "polar_iterate"])
+def test_gramfree_reductions_run_on_the_tensor_cores(name, cuda):
+    """The built libraries of K4a, K4b and K5 (polar_sketch) and of K8
+    (polar_iterate, whose first stage is K5's) hold Hopper's tf32 warpgroup
+    products (``HGMMA ... TF32`` in their SASS), not only float32 FMAs."""
+    {"polar_sketch": tps._sketch_lib, "polar_iterate": tps._lib}[name]()  # builds it
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("polar_sketch"))],
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
     assert any("HGMMA" in ln and "TF32" in ln for ln in sass.splitlines())
 

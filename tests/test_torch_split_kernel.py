@@ -18,7 +18,12 @@ Tolerances:
   (measured up to 3e-6);
 * on the card, the kernel against the plain version: the projector
   ``Q Q^T`` 1e-3, ``Q R`` 1e-4 of max|B| and the isometry of Q 1e-4, the
-  limits K1 is held to (measured at most 1.9e-6 on these shapes).
+  limits K1 is held to (measured at most 1.9e-6 on these shapes);
+* the blocked Householder QR of the card kernel (panels of NB columns, T by
+  larft, the trailing and the accumulation updates as products), emulated
+  here: in float64 against ``hqr_orth`` 1e-12 on Q itself (it re-associates
+  the same reflectors; measured ~1e-15); in float32 against JAX's
+  ``_hqr_orth`` by the projector and the isometry at K1's limits above.
 """
 
 import numpy as np
@@ -31,6 +36,8 @@ from tensornetworkforml_torch.ops.kernels import split_kernel as tsk
 HQR_TOL = 1e-5
 SPLIT_TOL = 1e-4
 CARD_PROJ_TOL, CARD_REC_TOL, CARD_ISO_TOL = 1e-3, 1e-4, 1e-4
+BLOCKED_F64_TOL = 1e-12
+NB = 8  # the card kernel's panel width (csrc/rangefinder_split.cu)
 
 
 @pytest.fixture
@@ -94,6 +101,99 @@ def test_hqr_orth_gives_unit_columns_for_zero_columns():
     y = _hqr_inputs("zero_rows")  # columns past the live rank: e_j exactly
     q = tsk.hqr_orth(torch.as_tensor(y))
     assert torch.equal(q[:, 3:], torch.eye(24, 16)[:, 3:])
+
+
+def _blocked_hqr(y, nb=NB, eps=1e-30):
+    """The card kernel's orthonormalisation, in torch in the dtype of ``y``:
+    Householder QR in panels of ``nb`` columns (geqrf). A panel's reflectors
+    are formed one after another as in ``hqr_orth`` and applied to the
+    panel's own later columns; T comes from larft (``H_0 ... H_{w-1} =
+    I - V T V^T``); the later columns take the panel at once, ``C -= V T^T
+    V^T C``. Then Q = H_0 ... H_{q-1} [I_q; 0] by panels from the last
+    (orgqr), ``C -= V T V^T C`` on the columns from the panel on. A dead
+    reflector (``|v|^2 <= eps``) has beta = 0, and the kernel stores 0 on its
+    diagonal."""
+    I, q = y.shape
+    a = y.clone()
+    panels = []
+    for kb in range(0, q, nb):
+        w = min(nb, q - kb)
+        V = torch.zeros((I - kb, w), dtype=y.dtype)
+        betas = []
+        for j in range(w):
+            x = a[kb + j:, kb + j]
+            tail = torch.dot(x[1:], x[1:])
+            sigma = torch.sqrt(x[0] * x[0] + tail)
+            v = x.clone()
+            v[0] = x[0] + torch.sign(x[0] + eps) * sigma  # x0 - alpha
+            vn2 = v[0] * v[0] + tail
+            live = bool(vn2 > eps)
+            beta = 2.0 / torch.clamp(vn2, min=eps) if live else torch.zeros((), dtype=y.dtype)
+            if live:
+                blk = a[kb + j:, kb + j + 1:kb + w]
+                blk.sub_(torch.outer(beta * v, v @ blk))
+            else:
+                v[0] = 0.0
+            V[j:, j] = v
+            betas.append(beta)
+        T = torch.zeros((w, w), dtype=y.dtype)
+        for j in range(w):
+            T[j, j] = betas[j]
+            if j:
+                T[:j, j] = -betas[j] * (T[:j, :j] @ (V[:, :j].T @ V[:, j]))
+        trail = a[kb:, kb + w:]
+        trail.sub_(V @ (T.T @ (V.T @ trail)))
+        panels.append((kb, V, T))
+    qacc = torch.eye(I, q, dtype=y.dtype)
+    for kb, V, T in reversed(panels):
+        blk = qacc[kb:, kb:]
+        blk.sub_(V @ (T @ (V.T @ blk)))
+    return qacc
+
+
+def _blocked_inputs(case):
+    """A random panel; one with exactly dead columns (zero columns, and the
+    columns past an edge step's live rows) and a column whose leading entry
+    is exactly 0; the zero matrix; a q that NB does not
+    divide (the flagship's q = 136 = 17 NB, so a ragged 69 here)."""
+    rng = np.random.default_rng(11)
+    if case == "random":
+        return rng.standard_normal((96, 40))
+    if case == "dead":
+        y = rng.standard_normal((64, 24))
+        y[0, 0] = 0.0  # x0 = 0: sign(0 + eps) = +1
+        y[:, [5, 9]] = 0.0  # dead reflectors inside the live block
+        y[12:] = 0.0  # an edge step: columns past the 12 live rows are e_j exactly
+        return y
+    if case == "zero":
+        return np.zeros((48, 20))
+    return rng.standard_normal((200, 69))
+
+
+@pytest.mark.parametrize("case", ["random", "dead", "zero", "ragged_q"])
+def test_blocked_householder_matches_hqr_orth_in_float64(case):
+    y = torch.as_tensor(_blocked_inputs(case))
+    got, want = _blocked_hqr(y), tsk.hqr_orth(y)
+    if case == "zero":
+        assert torch.equal(got, torch.eye(*y.shape, dtype=torch.float64))
+    assert float((got - want).abs().max()) <= BLOCKED_F64_TOL
+    if case == "dead":  # the columns past the live rows are unit vectors, exactly
+        assert torch.equal(got[:, 12:], torch.eye(*y.shape, dtype=torch.float64)[:, 12:])
+
+
+@pytest.mark.parametrize("case", ["random", "dead", "zero", "ragged_q"])
+def test_blocked_householder_matches_jax_in_float32(case):
+    import jax.numpy as jnp
+
+    from tensornetworkforml_tpu.ops.kernels.split_kernel import _hqr_orth
+
+    y = _blocked_inputs(case).astype(np.float32)
+    got = _blocked_hqr(torch.as_tensor(y)).double().numpy()
+    want = np.asarray(_hqr_orth(jnp.asarray(y)), np.float64)
+    if case == "zero":
+        assert np.array_equal(got, np.eye(*y.shape))
+    assert np.abs(got @ got.T - want @ want.T).max() <= CARD_PROJ_TOL
+    assert np.abs(got.T @ got - np.eye(y.shape[1])).max() <= CARD_ISO_TOL
 
 
 @pytest.mark.parametrize("shape,scale", [((32, 160, 16), 1.0), ((32, 160, 16), 1e10),
@@ -170,10 +270,15 @@ def cuda():
 
 def _card_input(case):
     """The rangefinder phase's shapes: a flagship-sized gapped matrix, a
-    ragged one, one whose panel does not fit in shared memory, and an edge
-    step with three live rows."""
+    ragged one, I = 512 (rank 256, a rangefinder step at M = 256; its columns
+    lived in global memory before the cluster kernel and stay in the
+    cluster's shared memory now, the case keeps its name), an edge step with
+    three live rows, a q = 69 that the panel width 8 does not divide, and
+    I = 1024 (q = 308), whose columns do not fit in the cluster's shared
+    memory and live in global memory."""
     I, J, rank = {"flagship": (256, 2560, 128), "ragged": (130, 1000, 60),
-                  "global_panel": (512, 5120, 256), "edge": (256, 2560, 128)}[case]
+                  "global_panel": (512, 5120, 256), "edge": (256, 2560, 128),
+                  "ragged_q": (200, 1500, 61), "global_columns": (1024, 4096, 300)}[case]
     if case == "edge":
         b = np.zeros((I, J), np.float32)
         b[:3] = np.random.default_rng(5).standard_normal((3, J))
@@ -185,7 +290,8 @@ def _card_input(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["flagship", "ragged", "global_panel", "edge"])
+@pytest.mark.parametrize("case", ["flagship", "ragged", "global_panel", "edge", "ragged_q",
+                                  "global_columns"])
 def test_kernel_matches_plain_on_card(case, cuda):
     b, rank = _card_input(case)
     b = b.to(cuda)
@@ -212,7 +318,21 @@ def test_zero_matrix_gives_the_unit_columns_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["flagship", "global_panel"])
+def test_kernel_keeps_the_columns_where_they_fit_on_card(cuda):
+    """The cluster holds the columns of the flagship and the I = 512 iterate
+    in shared memory, and those of I = 1024, q = 308 in global memory; past
+    the rows its panels can be factored in, the wrapper raises."""
+    lib = tsk._lib()
+    assert lib.tnml_rangefinder_resident(256, 136) == 1
+    assert lib.tnml_rangefinder_resident(512, 264) == 1
+    assert lib.tnml_rangefinder_resident(1024, 308) == 0
+    rows = lib.tnml_rangefinder_max_rows()
+    with pytest.raises(ValueError, match="rows"):
+        tsk.rangefinder_split(torch.zeros((rows + 1, 16), device=cuda), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flagship", "global_panel", "ragged_q", "global_columns"])
 def test_repeat_launches_are_bit_identical(case, cuda):
     b, rank = _card_input(case)
     b = b.to(cuda)
