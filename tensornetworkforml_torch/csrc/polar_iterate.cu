@@ -15,42 +15,61 @@
 // flagship (I = 256, q = 128; 5 loop and 14 final passes) that is a serial
 // chain of ~60 dependent products of ~1e6 FMA each, ~2.2e8 FMA in all.
 //
-// What bounds it on this card: not the bytes (y, g and Q are 0.5 MB and stay in
-// L2) but the dependence chain. Every pass needs all of W before any column of
-// the next y, so the work can spread only as wide as one pass allows, and
-// every pass ends in a barrier. The TPU kernel held y, g and W in VMEM; here g
-// alone (256 KiB) exceeds a block's 227 KB of shared memory.
+// What bounds it on this card: not the bytes (y, g and Q are 0.5 MB at the
+// flagship, 2 MB at I = 512, q = 256, and stay in L2) but the
+// dependence chain. Every pass needs all of W before any column of the next
+// y, so the work can spread only as wide as one pass allows, and every pass
+// ends in a barrier. The TPU kernel held y, g and W in VMEM; here g alone
+// (256 KiB at the flagship) exceeds a block's 227 KB of shared memory.
 //
-// Design: ONE launch of one thread-block cluster of 8 CTAs. CTA r owns the
-// column block [r*CB, (r+1)*CB) of y, W and P (CB a multiple of 4), so each
-// pass is two barriers:
-//   W[:, cb] = y^T y[:, cb]                         -> barrier (W is shared)
-//   P[:, cb] = a I + b W[:, cb] + c W W[:, cb];  y'[:, cb] = y P[:, cb]
-//                                                   -> barrier (y' is shared)
-// The product y P needs only this CTA's columns of P, and g y only its columns
-// of y, so neither needs a barrier before it. Shared values pass through global
-// scratch (L2-resident, read with ld.global.cg so that no CTA sees a stale L1
-// line), ordered by the cluster barrier after a memory fence. W is symmetric
-// bit for bit (the same FMA sequence for W[i,j] and W[j,i]), which lets W be
-// read column-major. Every reduction runs in one fixed order, so all CTAs
-// agree bit for bit. Products are full float32 FMAs.
-//
-// Two kernels, chosen at launch by what fits in a block's shared memory (each
-// kernel gets its own register allocation):
-//  * resident (the flagship: I = 256, q = 128 needs 217 KB): every CTA keeps
-//    the whole iterate y and, during a pass, the whole of W in shared memory,
-//    reloading each from L2 once per pass with cp.async (all copies queued,
-//    one wait), so every product reads shared memory only; g y streams g
-//    through shared memory in 32-column chunks. Column norms are cheap enough
-//    for each CTA to compute for all columns, so colnorm needs no barrier.
-//    Measured at the flagship on an H100: ~20 us per pass, near what 8 SMs of
-//    8 warps issue for the ~1.3e6 FMA each CTA does per pass; the rest is
-//    barriers and L2 round trips. More SMs per pass is the next step.
-//  * streaming (larger I * q): operands stream from L2 in chunks through a
-//    register-prefetched tile (tile_gemm.cuh), with each product's k range
-//    split over two thread groups so that two L2 round trips are in flight.
-//    Each chunk waits on an L2 round trip, which is what bounds this path.
-// The device code is in polar_iterate.cuh, which K7 (two_site_step.cu) shares.
+// Two forms, chosen from the shape alone (fits_cluster):
+//  * the cluster form, for every shape where a CTA's output fits one pass over
+//    k (I * nc <= 8192, nc = q / 16 rounded up to 4, 8 or 16) and its buffers
+//    fit shared memory: q <= 256 up to I = 512, so the flagship (I = 256,
+//    q = 128) and the hybrid step at M = 256 (I = 512, q = 256). ONE launch
+//    of a 16-CTA cluster (a non-portable size, cudaLaunchKernelEx) of 288
+//    threads: 256 consumers and one producer warp. CTA r owns the column
+//    block [r nc, (r + 1) nc) of y, W and P in its shared memory, and copies
+//    its columns of y (as y and as y^T, two buffers) and of W into whole
+//    matrices in global scratch, which stay in L2. Per pass:
+//      W[:, own] = y^T y[:, own]       chunks of rows of y
+//                                          -> cluster barrier (W complete)
+//      P[:, own] = a I + b W[:, own] + c W W[:, own]
+//                                      chunks of rows of W (W is symmetric bit
+//                                      for bit, so its rows are its columns)
+//      y'[:, own] = y P[:, own]        chunks of rows of y^T, P local
+//                                          -> cluster barrier (y' complete)
+//    A chunk (up to 64 KB) is one TMA bulk copy (cp.async.bulk) into one of
+//    two stage buffers: the producer waits for a buffer's empty mbarrier,
+//    the consumers for its full one, so a chunk is in flight while the other
+//    is multiplied and the consumers never meet per chunk. Each consumer
+//    holds an 8 x 4 tile of the CTA's output; where the output is small (the
+//    flagship's W is 128 x 8 a CTA) up to 8 thread groups split each chunk's
+//    k range, and all consumers add the groups' tiles in group order. Each
+//    chunk's terms are summed apart and then added (blocked summation): one
+//    FMA chain over 512 terms left rounding in the near-null directions of
+//    rank-deficient steps that the final schedule lifted to unit columns.
+//    g y reads g (read once a launch) through registers, transposed, and only
+//    the own columns of y, so it needs no barrier; colnorm and the prescale
+//    need one cluster-wide max each, through one slot per CTA in distributed
+//    shared memory. A barrier.cluster arrive.release / wait.acquire, after a
+//    proxy fence, orders the global writes before the TMA reads them.
+//    On an H100 (scripts/torch_k1_probe.py bandwidth) a CTA reads 20-26 GB/s
+//    through distributed shared memory at cluster sizes 2 to 16 and 52-81
+//    GB/s from L2 by cp.async, so the shared operands go through L2, and by
+//    the TMA, whose copies a producer warp issues off the consumers' path.
+//  * the streaming form, for the shapes past that (I = 768, q = 384: the
+//    hybrid split at M = 384): ONE launch of one 8-CTA cluster; CTA r owns a
+//    column block of y, W and P held in global scratch (L2), two barriers a
+//    pass after a memory fence, shared values read back with ld.global.cg;
+//    operands stream from L2 in chunks through a register-prefetched tile
+//    (tile_gemm.cuh), with each product's k range split over two thread
+//    groups. Each chunk waits on an L2 round trip, which bounds this form.
+// In both, every cross-CTA sum runs in one fixed order, so all CTAs agree bit
+// for bit and repeat launches are bit-identical; W is symmetric bit for bit
+// (W[i,j] and W[j,i] are the same FMA sequence); no float atomics; products
+// are full float32 FMAs. The device code is in polar_iterate.cuh, which K7
+// (two_site_step.cu) shares.
 //
 // This library also holds the all-in-one polar split (kernel K8), which
 // replaces the Pallas kernel _polar_split_kernel behind polar_split_pallas in
@@ -61,7 +80,7 @@
 // y and G's upper triangle of 128 x 128 tiles, mirrored, on the tensor cores
 // in 3xTF32, then the fixed-order sum), the second K1's launch. It sits here, not in a source of its own,
 // because its device code is exactly K5's and K1's, and a library of its own
-// would compile K1's two cluster kernels once more. The Pallas kernel's
+// would compile K1's two kernels once more. The Pallas kernel's
 // J-tiling, its 2 MB block cap and its 128-column padding were Mosaic
 // workarounds: only the padded length at which the caller draws Omega is
 // semantics, and the caller hands over its first J rows. R = Q^T B is a plain
@@ -109,7 +128,8 @@ int tnml_polar_iterate(const float* y, const float* g, const float* n2, float* q
                        (cudaStream_t)stream);
 }
 
-int tnml_polar_resident(int I, int q) { return polar::fits_resident(I, q); }
+// 1 when an (I, q) launch runs the cluster form, 0 for the streaming form
+int tnml_polar_cluster(int I, int q) { return polar::fits_cluster(I, q) ? 1 : 0; }
 
 // K8
 long tnml_polar_split_scratch_floats(int I, int J, int q) {

@@ -21,7 +21,7 @@
 // What bounds it on this card: at the flagship (L = 10, M = 128, B = 256) the
 // step is ~2.0e9 FLOP (pre-split 1.34e9, iteration 4.3e8, Q^T bn 1.7e8,
 // left Q 1.7e7) against ~13 MB of traffic, so the operations: ~29 us at the
-// float32 rate. The iteration's chain of ~60 dependent products on one 8-CTA
+// float32 rate. The iteration's chain of ~60 dependent products on one
 // cluster, as in K1, is what sets its time in practice.
 //
 // Design: the Pallas body is one program; here the step is a chain of
@@ -29,7 +29,7 @@
 // kernel by the wrapper:
 //   grad, update, reduce, finish  K2's four launches (presplit.cuh), the
 //                                 growth cap applied where reduce loads bn;
-//   polar_resident / streaming    K1's iteration (polar_iterate.cuh) on
+//   polar_cluster / streaming     K1's iteration (polar_iterate.cuh) on
 //                                 (y, G, n2), writing Q into a_left;
 //   step_product_kernel           lenv_new = left Q as 64 x 64 tiles, each
 //                                 with its partial row sums of squares, and

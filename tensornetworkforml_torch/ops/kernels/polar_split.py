@@ -192,8 +192,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.tnml_polar_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.tnml_polar_scratch_floats.restype = ctypes.c_long
-        lib.tnml_polar_resident.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.tnml_polar_resident.restype = ctypes.c_int
+        lib.tnml_polar_cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.tnml_polar_cluster.restype = ctypes.c_int
         lib.tnml_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tnml_cuda_error_string.restype = ctypes.c_char_p
     return lib

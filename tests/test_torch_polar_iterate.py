@@ -166,10 +166,15 @@ def test_wrapper_rejects_a_device_it_has_no_kernel_for():
         tps.polar_iterate(y, g.to("meta"))
 
 
-# On the card: ragged shapes, the flagship (I = 256, q = 128), a column
-# block wider than one tile (q = 200: 25 columns per CTA > 16 per tile) and
-# the hybrid step at M = 256 (I = 512, q = 256: the L2-streaming form).
-CUDA_CASES = [(16, 8), (40, 24), (256, 128), (320, 200), (512, 256)]
+# On the card: ragged shapes, the flagship (I = 256, q = 128), q = 200 (13 of
+# the cluster form's 16 CTAs own live columns, the last one 8 of its 16), the
+# hybrid step at M = 256 (I = 512, q = 256: the cluster form's largest
+# output tile), a ragged I that is not a multiple of 4 (g read without
+# float4s) and the hybrid split at M = 384 (I = 768, q = 384: the streaming
+# form).
+CUDA_CASES = [(16, 8), (40, 24), (256, 128), (320, 200), (512, 256), (301, 77), (768, 384)]
+# the two main-path shapes: the flagship and the hybrid step at M = 256
+MAIN_SHAPES = [(256, 128), (512, 256)]
 
 
 @pytest.mark.cuda
@@ -211,3 +216,62 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         tps.polar_iterate(torch.zeros((4, 8), device=cuda).T, g)  # not contiguous
     with pytest.raises(ValueError):
         tps.polar_iterate(y, g.cpu())  # mixed devices
+
+
+def _card_inputs(I, q, cuda, seed=None, dead_rows=0):
+    b = _gapped(I, 5 * I, q, seed=I if seed is None else seed, dead_rows=dead_rows)
+    y, g = _sketch(b, q, seed=1)
+    return torch.as_tensor(y, device=cuda), torch.as_tensor(g, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,q", MAIN_SHAPES)
+def test_kernel_repeats_are_bit_identical(I, q, cuda):
+    """Every cross-CTA sum runs in one fixed order: two launches on the same
+    inputs give the same bits."""
+    yt, gt = _card_inputs(I, q, cuda)
+    first = tps.polar_iterate(yt, gt)
+    second = tps.polar_iterate(yt, gt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,q", MAIN_SHAPES)
+@pytest.mark.parametrize("what", ["nan_column", "zero_y"])
+def test_kernel_nan_column_and_zero_y(I, q, what, cuda):
+    """A NaN column makes the largest column norm NaN, so every column is dead
+    and Q is exactly zero; an all-zero y gives an all-zero Q. Both finite, as
+    the plain version gives them."""
+    yt, gt = _card_inputs(I, q, cuda)
+    if what == "nan_column":
+        yt[:, q // 3] = float("nan")
+    else:
+        yt.zero_()
+    got = tps.polar_iterate(yt, gt)
+    torch.cuda.synchronize()
+    want = tps.polar_iterate_reference(yt, gt)
+    assert torch.isfinite(got).all() and torch.isfinite(want).all()
+    assert float(got.abs().max()) == 0.0 == float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_kernel_ragged_with_dead_columns_on_card(cuda):
+    """A ragged shape (I not a multiple of 4, q = 77 spread over 10 CTAs, the
+    last with 5 live of its 8 columns) whose B has dead rows and whose sketch
+    has three zero columns: those stay exactly zero, and the rest is as close
+    to a float64 run as the float32 plain version is."""
+    I, q = 301, 77
+    yt, gt = _card_inputs(I, q, cuda, seed=9, dead_rows=24)
+    dead = [3, 40, q - 1]
+    yt[:, dead] = 0.0
+    got = tps.polar_iterate(yt, gt)
+    torch.cuda.synchronize()
+    want32 = tps.polar_iterate_reference(yt, gt)
+    want64 = tps.polar_iterate_reference(yt.double(), gt.double())
+    assert got.shape == (I, q) and torch.isfinite(got).all()
+    assert float(got[:, dead].abs().max()) == 0.0
+    assert float(got[I - 24 :].abs().max()) == 0.0
+    err, err_plain = _proj_err(got.cpu(), want64.cpu()), _proj_err(want32.cpu(), want64.cpu())
+    assert err <= max(2 * err_plain, TOL), (err, err_plain)
