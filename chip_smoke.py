@@ -75,8 +75,9 @@ phase trains the same model at M=512. Phases:
                 quality, against the factored one;
  12. timing  -- each kernel vs its plain version with CUDA events (plain,
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
-                yardstick call; K5 at the flagship and at M=512; K1 at the
-                flagship and on the M=256 step's inputs), ms per sweep
+                yardstick call; K5 at the flagship and at M=512; K1 and K2
+                at the flagship and on the M=256 step's inputs, K2 also by
+                launch from a profile), ms per sweep
                 on the three engines, on the rangefinder split (its profile
                 splitting K6 into its four launches), on both M=512 routes and on the hybrid and
                 xla engines at M=256, the device time of a profiled sweep of
@@ -809,7 +810,7 @@ def phase_hybrid_wide(requests, xb, yb, x_fresh):
         gaps = sweep_gaps(f"hybrid M={M_WIDE} {what}", a, b, x_fresh)
         print(f"[hybrid M={M_WIDE}] {what}: f_final {gaps[0]:.3g}, fresh scores {gaps[1]:.3g} "
               f"of max|f| (printed, not held)")
-    return wide, errs, cap["k1"], launched["polar_iterate"]
+    return wide, errs, cap, launched
 
 
 # ---- phase 7: the fused engine (K7) ---------------------------------------------
@@ -1664,12 +1665,12 @@ def host_time_line(what, fn) -> None:
 # name counts for the first entry it matches
 PROFILE_KERNELS = {
     "K1": ("polar_cluster_kernel", "polar_streaming_kernel"),
-    # K2's launches, by namespace: PyTorch's own reductions are also named
-    # reduce_kernel
-    "K2": ("presplit::grad_kernel", "presplit::update_kernel", "presplit::reduce_kernel",
-           "presplit::finish_kernel"),
+    # K2's launches, by namespace: PyTorch's own kernels use some of these
+    # names too
+    "K2": ("presplit::prep_kernel", "presplit::gradient_kernel", "presplit::update_kernel",
+           "presplit::transpose_kernel", "presplit::products_kernel", "presplit::finish_kernel"),
     "K4/K5": ("tc_gemm_kernel", "tc_sketch_gram_kernel", "split_sum_kernel"),
-    # K7's own launches; its other six share K2's and K1's names, and K8's
+    # K7's own launches; its other seven share K2's and K1's names, and K8's
     # launches are K5's and K1's (one source of device code for each)
     "K7": ("step_product_kernel", "step_scale_kernel"),
 }
@@ -1682,6 +1683,16 @@ FUSED_PROFILE = {"K7": PROFILE_KERNELS["K2"] + PROFILE_KERNELS["K1"] + PROFILE_K
 # on the cluster, R = Q^T B
 RF_PROFILE = {"K6 tile pass": ("sketch_tile_kernel",), "K6 scale": ("rf_finish_kernel",),
               "K6 cluster": ("rf_cluster_kernel",), "K6 R": ("rf_r_kernel",)}
+
+
+def k2_by_launch(what, args, kwargs, reps: int = 20) -> None:
+    """K2's device time by launch (torch.profiler over ``reps`` calls)."""
+    by = device_time_table(lambda: [presplit_kernel.two_site_presplit(*args, **kwargs)
+                                    for _ in range(reps)])["by_kernel_ms"]
+    mine = {k: v for k, v in by.items() if profile_owner(k, {"K2": PROFILE_KERNELS["K2"]})}
+    print(f"[profile] K2 by launch at {what}: " + ", ".join(
+        f"{k.split('presplit::')[1].split('(')[0]} {v * 1e3 / reps:.1f} us"
+        for k, v in mine.items()) + f"; {sum(mine.values()) * 1e3 / reps:.1f} us a call")
 
 
 def profile_owner(name: str, groups=PROFILE_KERNELS):
@@ -1828,11 +1839,18 @@ def phase_large_timing(mps, large, captured, xb, yb) -> dict:
     return ms
 
 
-def phase_wide_timing(wide, xb, yb, k1_args) -> dict:
-    """K1 on the captured M=256 step (I = 512, q = 256) in turns with its plain
-    version; ms per sweep at M=256 on the hybrid and the xla engine (in
-    turns), and a profiled hybrid sweep: its device busy time and idle share."""
-    y0, g, n2 = k1_args
+def phase_wide_timing(wide, xb, yb, cap) -> dict:
+    """K2 (I = 512) and K1 (I = 512, q = 256) on the captured M=256 step in
+    turns with their plain versions, and K2's device time by launch; ms per
+    sweep at M=256 on the hybrid and the xla engine (in turns), and a
+    profiled hybrid sweep: its device busy time and idle share."""
+    args, kwargs = cap["k2"]
+    k2 = turns(f"two_site_presplit L={L} I={M_WIDE * D} DM={D * M_WIDE} B={BATCH} q={M_WIDE} "
+               f"(M={M_WIDE} step {CAPTURE_STEP})",
+               lambda: presplit_kernel.two_site_presplit(*args, **kwargs),
+               lambda: presplit_kernel.two_site_presplit_reference(*args, **kwargs))
+    k2_by_launch(f"M={M_WIDE} step {CAPTURE_STEP}", args, kwargs)
+    y0, g, n2 = cap["k1"]
     shape = f"I={y0.shape[0]} q={y0.shape[1]}"
     k1 = turns(f"polar_iterate {shape} (M={M_WIDE} step {CAPTURE_STEP})",
                lambda: polar_split.polar_iterate(y0, g, n2),
@@ -1851,7 +1869,8 @@ def phase_wide_timing(wide, xb, yb, k1_args) -> dict:
     summarise_profile(f"M={M_WIDE} hybrid",
                       device_time_table(lambda: one_sweep(wide, xb, yb, "hybrid")),
                       wide_ms["hybrid"])
-    return {"wide_sweep": wide_ms, ("polar_iterate", M_WIDE): k1}
+    return {"wide_sweep": wide_ms, ("polar_iterate", M_WIDE): k1,
+            ("two_site_presplit", M_WIDE): k2}
 
 
 def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
@@ -1870,6 +1889,7 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
         f"two_site_presplit L={L} I={M * D} DM={D * M} B={BATCH} q={M}",
         lambda: presplit_kernel.two_site_presplit(*args, **kwargs),
         lambda: presplit_kernel.two_site_presplit_reference(*args, **kwargs))
+    k2_by_launch(f"flagship step {CAPTURE_STEP}", args, kwargs)
     y0, g, n2 = captured["k1"]
     ms["polar_iterate"] = turns(
         f"polar_iterate I={M * D} q={M}", lambda: polar_split.polar_iterate(y0, g, n2),
@@ -1948,9 +1968,10 @@ def main() -> None:
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
     xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
     yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
-    wide, wide_errs, wide_k1, launches[("polar_iterate", M_WIDE)] = phase_hybrid_wide(
-        requests, xb, yb, x_fresh)
-    errs["two_site_presplit"] = max(errs["two_site_presplit"], wide_errs["two_site_presplit"])
+    wide, wide_errs, wide_cap, wide_launched = phase_hybrid_wide(requests, xb, yb, x_fresh)
+    for name in ("two_site_presplit", "polar_iterate"):
+        launches[(name, M_WIDE)] = wide_launched[name]
+    errs[("two_site_presplit", M_WIDE)] = wide_errs["two_site_presplit"]
     errs[("polar_iterate", M_WIDE)] = wide_errs[("polar_iterate", M_WIDE)]
     errs["two_site_step"] = phase_step_kernels(captured)
     launches["two_site_step"] = phase_fused(mps, x_tr, y_tr, x_fresh)["two_site_step"]
@@ -1983,7 +2004,7 @@ def main() -> None:
     ms = phase_timing(mps, requests, x_big, captured, x_tr, y_tr)
     ms.update(phase_rangefinder_timing(mps, captured, xb, yb))
     ms.update(phase_large_timing(big, large, captured, xb, yb))
-    ms.update(phase_wide_timing(wide, xb, yb, wide_k1))
+    ms.update(phase_wide_timing(wide, xb, yb, wide_cap))
 
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
@@ -2001,6 +2022,8 @@ def main() -> None:
     }
     work[("polar_sketch_gram", M_LARGE)] = sketch_work(I_big, J_big, M_LARGE, True)
     work[("polar_iterate", M_WIDE)] = polar_work(M_WIDE * D, M_WIDE, *pe)
+    work[("two_site_presplit", M_WIDE)] = presplit_work(L, M_WIDE * D, M_WIDE, D * M_WIDE, BATCH,
+                                                        M_WIDE)
     # K4a, K4b and K5 run in 3xTF32 on the tensor cores: their bound is the
     # tensor part three times over at the TF32 rate; K8's is its K5 stage's so
     # and K1's float32 iteration; the float32 bound is printed beside it
@@ -2037,6 +2060,9 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:566", ("polar_iterate", M_WIDE)),
         ("two_site_presplit", "presplit.cu",
          "tensornetworkforml_tpu/ops/kernels/presplit_kernel.py:69", "two_site_presplit"),
+        ("two_site_presplit", "presplit.cu",
+         "tensornetworkforml_tpu/ops/kernels/presplit_kernel.py:69",
+         ("two_site_presplit", M_WIDE)),
         ("gramfree_sketch", "polar_sketch.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:321", "gramfree_sketch"),
         ("gramfree_gmul", "polar_sketch.cu",
@@ -2072,6 +2098,9 @@ def main() -> None:
             row["shape"] = (f"I={I_big} J={J_big} q={M_LARGE}"
                             if key == ("polar_sketch_gram", M_LARGE)
                             else f"I={M * D} J={L * D * M} q={M}")
+        if name == "two_site_presplit":
+            m = M_WIDE if key == ("two_site_presplit", M_WIDE) else M
+            row["shape"] = f"L={L} I={m * D} DM={D * m} Mk={m} B={BATCH} q={m}"
         if name == "polar_iterate":
             m = M_WIDE if key == ("polar_iterate", M_WIDE) else M
             row["shape"] = f"I={m * D} q={m}"

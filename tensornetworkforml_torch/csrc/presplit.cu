@@ -17,23 +17,37 @@
 // [sum|bt|, sum|db|, |bnew|^2, sum|bnew|, acc, mae, mean|f|, 0].
 //
 // What bounds it on this card: the operations. At the flagship (L = 10,
-// I = DM = 256, Mk = 128, B = 256, q = 128) it is ~6.7e8 FMA against ~12 MB
-// of traffic, so the float32 FMA rate, and how many SMs have work, decide.
+// I = DM = 256, Mk = 128, B = 256, q = 128) it is ~5.9e8 FMA (G as one
+// triangle) against ~12 MB of traffic, at M = 256 (I = DM = 512) ~3.4e9 FMA
+// against ~24 MB, so the float32 FMA rate, and how many SMs have work, decide.
+// Measured (PERF.md section 6), the copies into shared memory and the phases'
+// tails take a third to a half of the time the FMAs alone would.
 //
 // Design: the clip is a dependency on ALL label blocks before any bnew
 // exists, and blocks cannot carry a sum from one to the next, so the step is
-// four launches (counted as one kernel):
-//   A  tiles over (I-tile, DM-tile, o): bt and db to scratch, per-block
-//      partial |bt| and |db| sums; one block writes acc, mae and mean|f|,
-//      the blocks of the first column write left_part;
-//   B  every block reduces the partials to eta in the same order and forms
-//      bnew (written out) with partial |bnew|^2 and |bnew| sums;
-//   C  G, y0 and f_new as per-label (and, for f, per-DM-tile) partial tiles,
-//      so that enough blocks have work;
-//   D  sums the partials in fixed order.
-// There are no float atomics: every sum has one order, and two runs agree
-// bit for bit. All products are float32 FMAs in 64 x 64 tiles (tile_gemm.cuh).
-// The device code is in presplit.cuh, which K7 (two_site_step.cu) shares.
+// six launches on one stream (counted as one kernel):
+//   prep_kernel       loss_der (L, B), left_part and its transpose,
+//                     right_part (B, DM) and lab's transpose, each once;
+//                     one block writes acc, mae and mean|f|;
+//   gradient_kernel   a 64 x 64 tile (I-tile, DM-tile, o) of bt and db a
+//                     block, with the tile's partial |bt| and |db| sums;
+//   update_kernel     every block reduces the partials to eta in the same
+//                     order and forms bnew (written out) with partial
+//                     |bnew|^2 and |bnew| sums;
+//   transpose_kernel  bnew's transpose, for G's and y0's operands;
+//   products_kernel   per-label tiles of G (on and above the diagonal, each
+//                     also written mirrored: G is symmetric) and y0, and
+//                     per-(label, DM-tile) partials of f_new;
+//   finish_kernel     sums the partials in fixed order.
+// Every product is a 64 x 64 tile of float32 FMAs on 128 threads, 8 x 4
+// outputs a thread. Both operands are read with the tile's index contiguous
+// (hence the transposes), so that cp.async copies them 16 bytes at a time
+// into shared memory, three chunks of 16 k in flight; a thread scales what it
+// copied as it lands (right_part by loss_der, bnew by the growth cap). There
+// are no float atomics: every sum has one order, and two runs agree bit for
+// bit. The orders are those of this kernel's first version (presplit.cuh,
+// header), so its outputs are the same bits. The device code is in
+// presplit.cuh, which K7 (two_site_step.cu) shares.
 
 #include <cuda_runtime.h>
 

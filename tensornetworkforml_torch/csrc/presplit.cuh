@@ -2,29 +2,42 @@
 // hybrid engine's step) and two_site_step.cu (K7, the fused engine's whole
 // step): merge, loss derivative, gradient, plain weight decay, L1 clip,
 // ascent update, output recompute, and the split's sketch y0 = B_new Omega and
-// Gram G = B_new B_new^T, as four launches (see presplit.cu for the design).
+// Gram G = B_new B_new^T, as six launches (see presplit.cu for the design).
 //
 // A growth cap (K7 only; K2 passes growth_cap = 0, which changes no bit):
 //   g_sc = min(1, (1 + cap) sum|bt| / sum|bnew|)
 // scales bnew before f_new, y0 and G are formed. The launch that forms them
-// (reduce_kernel) first reduces the update's partial sum|bnew| in the same
-// fixed order in every block, scales bnew as it loads it, and writes g_sc to
-// *gsc; finish_kernel then reports |g_sc bnew|^2 and sum|g_sc bnew| in the
-// stats row. bnew itself is written unscaled.
+// (products_kernel) first reduces the update's partial sum|bnew| in the same
+// fixed order in every block, scales bnew as it lands in shared memory, and
+// writes g_sc to *gsc; finish_kernel then reports |g_sc bnew|^2 and
+// sum|g_sc bnew| in the stats row. bnew itself is written unscaled.
+//
+// Every sum has one fixed order, that of this kernel's first version (64 x 64
+// tiles of 256 threads, 4 x 4 outputs each): each product output is one FMA
+// chain over k = 0, 1, ..., K - 1 and the zeros up to the next multiple of TK,
+// the |bt| and |db| partials of each 64 x 64 tile are that tiling's per-thread
+// sums added by a 256-slot tree, and so on. The tiling here differs (128
+// threads, 8 x 4 outputs each), but each thread owns two of the old threads'
+// 4 x 4 blocks and builds their sums in their order, and the operands are the
+// same floats, only laid out otherwise, so the outputs are the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "tile_gemm.cuh"
 
 namespace {
 namespace presplit {
 
-constexpr int NT = 256;
-constexpr int T = 64, TK = 16;
-using Smem = TileSmem<T, T, TK>;
+constexpr int NR = 256;         // threads of the other launches; slots of a sum's tree
+constexpr int T = 64, TK = 16;  // output tile, k chunk
+constexpr int NT = 128;         // threads of a product block, 8 x 4 outputs each
+constexpr int TP = T + 4;       // row stride of a staged chunk (4 mod 32 words)
+constexpr int NSTAGE = 3;       // chunks in flight
+constexpr int TT = 32;          // transpose tile
 
 enum { ACT_LINEAR = 0, ACT_SIGMOID = 1, ACT_SOFTMAX = 2 };
 enum { LOSS_MSE = 0, LOSS_CE = 1, LOSS_FULL_CE = 2 };
@@ -47,16 +60,22 @@ struct Args {
   float* f_new;        // (L, B)
   float* left_part;    // (B, I)
   float* stats;        // (8)
+  float* ld;           // scratch (L, B): loss_der
+  float* rp;           // scratch (B, DM): right_part
+  float* lpt;          // scratch (I, B): left_part^T
+  float* labt;         // scratch (L, Mk, I): lab_o^T
+  float* bnt;          // scratch (L, DM, I): bnew_o^T, in labt's place
   float* bt;           // scratch (L, I, DM)
   float* db;           // scratch (L, I, DM)
-  float* gp;           // scratch (L, I, I)
+  float* gp;           // scratch (L, I, I): per-label G
   float* yp;           // scratch (L, I, q)
   float* fp;           // scratch (L, nD, B)
-  float* part_a;       // scratch (2 * blocks of A)
-  float* part_b;       // scratch (2 * blocks of B)
+  float* part_a;       // scratch (2 * blocks_a)
+  float* part_b;       // scratch (2 * blocks_b)
   int L, I, Mk, DM, B, D, M, q;
   int nI, nD, nQ, nB;  // tile counts over I, DM, q and B
   int blocks_a, blocks_b, with_gram;
+  int n_elem;          // elementwise blocks of the prep launch
   int act, loss;
   float temp;        // softmax / sigmoid temperature
   float growth_cap;  // 0: no cap (K2)
@@ -90,66 +109,38 @@ __device__ __forceinline__ float right_part(const Args& a, int b, int s) {
   return a.x2[(size_t)b * a.D + s / a.M] * a.r_env[(size_t)b * a.M + s % a.M];
 }
 
-// A: bt, db tiles and their |.| partial sums
-__global__ void __launch_bounds__(NT) grad_kernel(Args a) {
-  extern __shared__ float ld[];  // loss_der[o, :]
-  __shared__ Smem sm;
-  __shared__ float red[NT];
-  const int it = blockIdx.x, jt = blockIdx.y, o = blockIdx.z, tid = threadIdx.x;
-  const int blk = (o * a.nD + jt) * a.nI + it;
-  for (int b = tid; b < a.B; b += NT) ld[b] = loss_der(a, o, b);
+// ---- P: loss_der, left_part, right_part and the transposed operands once; the
+// batch metrics
+
+// src (n, rows, cols) -> dst (n, cols, rows), one 32 x 32 tile a block of NR threads
+__device__ __forceinline__ void transpose_tile(const float* src, float* dst, int rows, int cols,
+                                               int tile, float (*buf)[TT + 1]) {
+  const int nr = (rows + TT - 1) / TT, nc = (cols + TT - 1) / TT;
+  const int tc = tile % nc, tr = (tile / nc) % nr, n = tile / (nc * nr);
+  src += (size_t)n * rows * cols;
+  dst += (size_t)n * rows * cols;
+  const int tx = threadIdx.x % TT, ty = threadIdx.x / TT;
+  for (int i = ty; i < TT; i += NR / TT) {
+    const int r = tr * TT + i, c = tc * TT + tx;
+    if (r < rows && c < cols) buf[i][tx] = src[(size_t)r * cols + c];
+  }
   __syncthreads();
-
-  const int I = a.I, Mk = a.Mk, DM = a.DM, B = a.B;
-  const int m0 = it * T, n0 = jt * T;
-  const float* lab = a.lab + (size_t)o * I * Mk;
-  const float* a2m = a.a2m;
-  float acc_bt[4][4], acc_db[4][4];
-  tile_gemm<T, T, TK, NT, true, false>(
-      sm, m0, n0, Mk,
-      [=](int m, int k) { return (m < I && k < Mk) ? lab[(size_t)m * Mk + k] : 0.f; },
-      [=](int k, int n) { return (k < Mk && n < DM) ? a2m[(size_t)k * DM + n] : 0.f; }, acc_bt);
-  const Args& ar = a;
-  tile_gemm<T, T, TK, NT, false, false>(
-      sm, m0, n0, B,
-      [&](int m, int b) { return (m < I && b < B) ? left_part(ar, b, m) : 0.f; },
-      [&](int b, int n) { return (b < B && n < DM) ? right_part(ar, b, n) * ld[b] : 0.f; },
-      acc_db);
-
-  const float wd = *a.wd;
-  const int ty = tid / (T / 4), tx = tid % (T / 4);
-  float sb = 0.f, sdb = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
-      if (m < I && n < DM) {
-        const float bt = acc_bt[i][j];
-        const float db = acc_db[i][j] - wd * bt;
-        const size_t idx = ((size_t)o * I + m) * DM + n;
-        a.bt[idx] = bt;
-        a.db[idx] = db;
-        sb += fabsf(bt);
-        sdb += fabsf(db);
-      }
-    }
-  sb = block_sum<NT>(sb, red);
-  sdb = block_sum<NT>(sdb, red);
-  if (tid == 0) {
-    a.part_a[2 * blk] = sb;
-    a.part_a[2 * blk + 1] = sdb;
+  for (int i = ty; i < TT; i += NR / TT) {
+    const int c = tc * TT + i, r = tr * TT + tx;
+    if (r < rows && c < cols) dst[(size_t)c * rows + r] = buf[tx][i];
   }
+}
 
-  if (o == 0 && jt == 0) {  // left_part rows of this I-tile
-    for (int e = tid; e < B * T; e += NT) {
-      const int b = e / T, m = m0 + e % T;
-      if (m < I) a.left_part[(size_t)b * I + m] = left_part(a, b, m);
-    }
-  }
-  if (blk == 0) {  // batch metrics on the carried output (unique-max argmax)
+// Block 0: acc, mae and mean|f| of the carried output (unique-max argmax);
+// blocks 1 .. n_elem: loss_der (L, B), left_part (B, I) and its transpose,
+// right_part (B, DM); the rest: lab's 32 x 32 tiles, transposed.
+__global__ void __launch_bounds__(NR) prep_kernel(Args a) {
+  __shared__ float red[NR];
+  __shared__ float buf[TT][TT + 1];
+  const int tid = threadIdx.x, B = a.B;
+  if (blockIdx.x == 0) {
     float hits = 0.f, mae = 0.f, fabs_sum = 0.f;
-    for (int b = tid; b < B; b += NT) {
+    for (int b = tid; b < B; b += NR) {
       float fmax = -__int_as_float(0x7f800000);
       for (int p = 0; p < a.L; ++p) fmax = nanmax(fmax, f_act(a, p, b));
       float hit = 0.f;
@@ -161,9 +152,9 @@ __global__ void __launch_bounds__(NT) grad_kernel(Args a) {
       }
       hits += hit > 0.f ? 1.f : 0.f;
     }
-    hits = block_sum<NT>(hits, red);
-    mae = block_sum<NT>(mae, red);
-    fabs_sum = block_sum<NT>(fabs_sum, red);
+    hits = block_sum<NR>(hits, red);
+    mae = block_sum<NR>(mae, red);
+    fabs_sum = block_sum<NR>(fabs_sum, red);
     if (tid == 0) {
       const float n = (float)a.L * (float)B;
       a.stats[4] = hits / (float)B;
@@ -171,31 +162,260 @@ __global__ void __launch_bounds__(NT) grad_kernel(Args a) {
       a.stats[6] = fabs_sum / n;
       a.stats[7] = 0.f;
     }
+    return;
+  }
+  if (blockIdx.x > a.n_elem) {
+    transpose_tile(a.lab, a.labt, a.I, a.Mk, blockIdx.x - 1 - a.n_elem, buf);
+    return;
+  }
+  const long e = (long)(blockIdx.x - 1) * NR + tid;
+  if (e < (long)a.L * B) a.ld[e] = loss_der(a, (int)(e / B), (int)(e % B));
+  if (e < (long)B * a.I) {
+    a.left_part[e] = left_part(a, (int)(e / a.I), (int)(e % a.I));
+    a.lpt[e] = left_part(a, (int)(e % B), (int)(e / B));
+  }
+  if (e < (long)B * a.DM) a.rp[e] = right_part(a, (int)(e / a.DM), (int)(e % a.DM));
+}
+
+// bnew (L, I, DM) -> bnt (L, DM, I), after the update
+__global__ void __launch_bounds__(NR) transpose_kernel(Args a) {
+  __shared__ float buf[TT][TT + 1];
+  transpose_tile(a.bnew, a.bnt, a.I, a.DM, blockIdx.x, buf);
+}
+
+// ---- the product tile -------------------------------------------------------
+//
+// One block of NT = 128 threads accumulates a 64 x 64 tile of C = A B over
+// k in [0, K): thread (ty, tx) = (tid / 16, tid % 16) owns acc[i][j] at row
+// sub(ty, i) and column tx * 4 + j of the tile: the 4 x 4 blocks at rows
+// ty*4 and 32 + ty*4, each the block of thread slot(ty, tx, i) of a
+// 256-thread 4 x 4 tiling. A k step reads three float4 from shared memory for
+// 32 FMAs.
+//
+// Both operands are stored with the tile's row (column) index contiguous, the
+// k index strided: X[r][k] at p[k * ld + r]. Chunks of TK = 16 k are copied
+// from global into shared memory by cp.async, 16 bytes at a time where rows
+// come in aligned runs of 4 (else 4 bytes), NSTAGE chunks in flight, one
+// barrier a chunk; elements outside the matrix land as zeros. Every output is
+// one FMA chain over k = 0, 1, ..., K - 1 and the zeros up to the next
+// multiple of TK. A thread may scale the elements it copied once they land
+// (x * s, the first version's operand order), before the barrier that
+// publishes the chunk.
+
+struct __align__(16) Stage {
+  float a[TK][TP];
+  float b[TK][TP];
+};
+
+// operand X[r][k] = p[k * ld + r], r < R and k < K
+struct Operand {
+  const float* p;
+  int ld, R, K;
+  // rows come in aligned runs of 4, so a thread copies 4 at once
+  __device__ bool vec() const {
+    return (ld & 3) == 0 && (R & 3) == 0 && (reinterpret_cast<size_t>(p) & 15) == 0;
+  }
+};
+
+struct NoScale {};
+struct Uniform {  // every element times s
+  float s;
+  __device__ float operator()(int) const { return s; }
+};
+struct PerK {  // element (r, k) times s[k]
+  const float* s;
+  __device__ float operator()(int k) const { return s[k]; }
+};
+
+__device__ __forceinline__ int sub(int t, int i) { return (i >> 2) * 32 + t * 4 + (i & 3); }
+// the 256-thread tiling's thread whose 4 x 4 block holds acc[i][*]
+__device__ __forceinline__ int slot(int ty, int tx, int i) { return (ty + 8 * (i >> 2)) * 16 + tx; }
+
+constexpr int NS = T * TK / NT;  // elements of an operand a thread copies a chunk
+constexpr int NV = NS / 4;       // runs of 4 of them, for vec() operands
+
+// Calls f(row, k, width) for the elements (width 4: runs) this thread copies
+// of a chunk, in one order for the copy and the scaling.
+template <class F>
+__device__ __forceinline__ void chunk_elements(bool vec, const F& f) {
+  if (vec) {
+#pragma unroll
+    for (int s = 0; s < NV; ++s) {
+      const int e = threadIdx.x + s * NT;
+      f((e % (T / 4)) * 4, e / (T / 4), 4);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int e = threadIdx.x + s * NT;
+      f(e % T, e / T, 1);
+    }
   }
 }
 
-// B: eta from all partials (same order in every block), bnew and its partial sums
-__global__ void __launch_bounds__(NT) update_kernel(Args a) {
-  __shared__ float red[NT];
+__device__ __forceinline__ void copy_chunk(float (*dst)[TP], const Operand& x, int r0, int k0) {
+  chunk_elements(x.vec(), [&](int r, int k, int w) {
+    const int gr = r0 + r, gk = k0 + k;
+    const bool ok = gr < x.R && gk < x.K;
+    const float* src = ok ? x.p + (size_t)gk * x.ld + gr : x.p;
+    if (w == 4)
+      cp_async16(&dst[k][r], src, ok ? 16 : 0);
+    else
+      cp_async4(&dst[k][r], src, ok ? 4 : 0);
+  });
+}
+
+template <class F>
+__device__ __forceinline__ void scale_chunk(float (*dst)[TP], const Operand& x, int r0, int k0,
+                                            const F& f) {
+  if constexpr (!std::is_same<F, NoScale>::value) {
+    chunk_elements(x.vec(), [&](int r, int k, int w) {
+      if (r0 + r < x.R && k0 + k < x.K) {
+        const float v = f(k0 + k);
+        for (int u = 0; u < w; ++u) dst[k][r + u] = dst[k][r + u] * v;
+      }
+    });
+  }
+}
+
+template <class FA = NoScale, class FB = NoScale>
+__device__ __forceinline__ void tile_product(Stage (&st)[NSTAGE], const Operand& A,
+                                             const Operand& Bop, int m0, int n0,
+                                             float (&acc)[8][4], const FA& fa = {},
+                                             const FB& fb = {}) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int nk = (A.K + TK - 1) / TK;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) {
+      copy_chunk(st[s].a, A, m0, s * TK);
+      copy_chunk(st[s].b, Bop, n0, s * TK);
+    }
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    Stage& sm = st[c % NSTAGE];
+    cp_async_wait<NSTAGE - 2>();  // this thread's copies of chunk c have landed
+    scale_chunk(sm.a, A, m0, c * TK, fa);
+    scale_chunk(sm.b, Bop, n0, c * TK, fb);
+    __syncthreads();  // chunk c is complete, and chunk c - 1's stage is free
+    const int nc = c + NSTAGE - 1;
+    if (nc < nk) {
+      copy_chunk(st[nc % NSTAGE].a, A, m0, nc * TK);
+      copy_chunk(st[nc % NSTAGE].b, Bop, n0, nc * TK);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int k = 0; k < TK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&sm.a[k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&sm.a[k][32 + ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&sm.b[k][tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages may be refilled
+}
+
+// ---- A: bt and db tiles with their |.| partials -------------------------------
+
+struct GradSmem {
+  Stage st[NSTAGE];
+  float red[2][NR];
+};
+
+// One 64 x 64 tile (I-tile, DM-tile, label) of bt and db a block.
+__global__ void __launch_bounds__(NT) gradient_kernel(Args a) {
+  extern __shared__ float ld[];  // loss_der[o, :]
+  __shared__ GradSmem sm;
+  const int tid = threadIdx.x, blk = blockIdx.x;
+  const int it = blk % a.nI, jt = (blk / a.nI) % a.nD, o = blk / (a.nI * a.nD);
+  const int I = a.I, Mk = a.Mk, DM = a.DM, B = a.B;
+  for (int b = tid; b < B; b += NT) ld[b] = a.ld[(size_t)o * B + b];
+  const int m0 = it * T, n0 = jt * T, ty = tid / 16, tx = tid % 16;
+  float acc[8][4];
+  // bt_o = lab_o a2m
+  tile_product(sm.st, Operand{a.labt + (size_t)o * Mk * I, I, I, Mk}, Operand{a.a2m, DM, DM, Mk},
+               m0, n0, acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + sub(ty, i), n = n0 + tx * 4 + j;
+      if (m < I && n < DM) a.bt[((size_t)o * I + m) * DM + n] = acc[i][j];
+    }
+  // left_part^T (right_part * loss_der_o), the second operand scaled as it lands
+  tile_product(sm.st, Operand{a.left_part, I, I, B}, Operand{a.rp, DM, DM, B}, m0, n0, acc,
+               NoScale{}, PerK{ld});
+
+  const float wd = *a.wd;
+#pragma unroll
+  for (int ib = 0; ib < 2; ++ib) {
+    float sb = 0.f, sdb = 0.f;
+#pragma unroll
+    for (int i = ib * 4; i < ib * 4 + 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + sub(ty, i), n = n0 + tx * 4 + j;
+        if (m < I && n < DM) {
+          const size_t idx = ((size_t)o * I + m) * DM + n;
+          const float bt = a.bt[idx];  // this thread's own write above
+          const float db = acc[i][j] - wd * bt;
+          a.db[idx] = db;
+          sb += fabsf(bt);
+          sdb += fabsf(db);
+        }
+      }
+    sm.red[0][slot(ty, tx, ib * 4)] = sb;
+    sm.red[1][slot(ty, tx, ib * 4)] = sdb;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = NR / 2; s > 0; s >>= 1) {  // block_sum<NR>'s tree over the 256 slots
+    for (int t = tid; t < s; t += NT) {
+      sm.red[0][t] += sm.red[0][t + s];
+      sm.red[1][t] += sm.red[1][t + s];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    a.part_a[2 * blk] = sm.red[0][0];
+    a.part_a[2 * blk + 1] = sm.red[1][0];
+  }
+}
+
+// ---- B: eta from all partials (same order in every block), bnew and its partial sums
+
+__global__ void __launch_bounds__(NR) update_kernel(Args a) {
+  __shared__ float red[NR];
   const int tid = threadIdx.x;
   float sb = 0.f, sdb = 0.f;
-  for (int p = tid; p < a.blocks_a; p += NT) {
+  for (int p = tid; p < a.blocks_a; p += NR) {
     sb += a.part_a[2 * p];
     sdb += a.part_a[2 * p + 1];
   }
-  sb = block_sum<NT>(sb, red);
-  sdb = block_sum<NT>(sdb, red);
+  sb = block_sum<NR>(sb, red);
+  sdb = block_sum<NR>(sdb, red);
   const float eta = *a.lr * (sdb > sb ? sb / fmaxf(sdb, 1e-30f) : 1.f);
   const size_t n = (size_t)a.L * a.I * a.DM;
   float n2 = 0.f, sabs = 0.f;
-  for (size_t e = (size_t)blockIdx.x * NT + tid; e < n; e += (size_t)gridDim.x * NT) {
+  for (size_t e = (size_t)blockIdx.x * NR + tid; e < n; e += (size_t)gridDim.x * NR) {
     const float v = a.bt[e] + eta * a.db[e];
     a.bnew[e] = v;
     n2 = fmaf(v, v, n2);
     sabs += fabsf(v);
   }
-  n2 = block_sum<NT>(n2, red);
-  sabs = block_sum<NT>(sabs, red);
+  n2 = block_sum<NR>(n2, red);
+  sabs = block_sum<NR>(sabs, red);
   if (tid == 0) {
     a.part_b[2 * blockIdx.x] = n2;
     a.part_b[2 * blockIdx.x + 1] = sabs;
@@ -206,96 +426,133 @@ __global__ void __launch_bounds__(NT) update_kernel(Args a) {
   }
 }
 
-// C: per-label partial tiles of G and y0, per-(label, DM-tile) partials of f_new
-__global__ void __launch_bounds__(NT) reduce_kernel(Args a) {
-  __shared__ Smem sm;
-  __shared__ float rowpart[T][T / 4 + 1];
-  const int I = a.I, DM = a.DM, q = a.q, B = a.B;
-  const int tid = threadIdx.x, ty = tid / (T / 4), tx = tid % (T / 4);
-  float gs = 1.f;  // the growth cap's factor on bnew
-  if (a.growth_cap > 0.f) {
-    float s = 0.f;
-    for (int p = tid; p < a.blocks_b; p += NT) s += a.part_b[2 * p + 1];
-    s = block_sum<NT>(s, &rowpart[0][0]);
-    const float cap = (1.f + a.growth_cap) * a.stats[0];
-    gs = s > cap ? cap / fmaxf(s, 1e-30f) : 1.f;
-    if (blockIdx.x == 0 && tid == 0) *a.gsc = gs;
-    __syncthreads();
+// ---- C: per-label tiles of G and y0, per-(label, DM-tile) partials of f_new.
+// G's tiles are computed on and above the diagonal; each writes its mirror
+// below it too, since fmaf(x, y, c) = fmaf(y, x, c) gives the same bits.
+
+__device__ __forceinline__ void upper_tile(int t, int n, int& it, int& jt) {
+  it = 0;
+  while (t >= n - it) {
+    t -= n - it;
+    ++it;
   }
-  int job = blockIdx.x;
-  const int jobs_g = a.with_gram ? a.L * a.nI * a.nI : 0;
+  jt = it + t;
+}
+
+static_assert(sizeof(Stage) * NSTAGE >= sizeof(float) * T * (T + 1), "room for a G tile");
+
+struct ProductSmem {
+  Stage st[NSTAGE];  // also the transposed G tile, T x (T + 1) floats, once a product is done
+  float rowpart[T][T / 4 + 1];
+  float red[NR];
+};
+
+// One tile of G, y0 or f a block, bnew times gs (NoScale, or the growth cap's
+// Uniform factor) as it lands.
+template <class S>
+__device__ __forceinline__ void product_job(const Args& a, ProductSmem& sm, int job, const S& gs) {
+  const int I = a.I, DM = a.DM, q = a.q, B = a.B;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tri = a.nI * (a.nI + 1) / 2;
+  const int jobs_g = a.with_gram ? a.L * tri : 0;
   const int jobs_y = a.L * a.nI * a.nQ;
-  float acc[4][4];
+  float acc[8][4];
   if (job < jobs_g) {
-    const int it = job % a.nI, jt = (job / a.nI) % a.nI, o = job / (a.nI * a.nI);
-    const float* bn = a.bnew + (size_t)o * I * DM;
-    tile_gemm<T, T, TK, NT, true, true>(
-        sm, it * T, jt * T, DM,
-        [=](int m, int k) { return (m < I && k < DM) ? bn[(size_t)m * DM + k] * gs : 0.f; },
-        [=](int k, int n) { return (k < DM && n < I) ? bn[(size_t)n * DM + k] * gs : 0.f; }, acc);
+    int it, jt;
+    upper_tile(job % tri, a.nI, it, jt);
+    const int o = job / tri;
+    const Operand bn{a.bnt + (size_t)o * DM * I, I, I, DM};
+    tile_product(sm.st, bn, bn, it * T, jt * T, acc, gs, gs);
     float* gp = a.gp + (size_t)o * I * I;
+    float(*tile)[T + 1] = reinterpret_cast<float(*)[T + 1]>(&sm.st[0]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int m = it * T + ty * 4 + i, n = jt * T + tx * 4 + j;
+        const int m = it * T + sub(ty, i), n = jt * T + tx * 4 + j;
         if (m < I && n < I) gp[(size_t)m * I + n] = acc[i][j];
+        tile[tx * 4 + j][sub(ty, i)] = acc[i][j];
       }
+    if (it == jt) return;
+    __syncthreads();  // the mirror tile, written row by row
+    for (int e = tid; e < T * T; e += NT) {
+      const int r = e / T, c = e % T, n = jt * T + r, m = it * T + c;
+      if (m < I && n < I) gp[(size_t)n * I + m] = tile[r][c];
+    }
     return;
   }
   job -= jobs_g;
   if (job < jobs_y) {
     const int it = job % a.nI, qt = (job / a.nI) % a.nQ, o = job / (a.nI * a.nQ);
-    const float* bn = a.bnew + (size_t)o * I * DM;
-    const float* om = a.om + (size_t)o * DM * q;
-    tile_gemm<T, T, TK, NT, true, false>(
-        sm, it * T, qt * T, DM,
-        [=](int m, int k) { return (m < I && k < DM) ? bn[(size_t)m * DM + k] * gs : 0.f; },
-        [=](int k, int n) { return (k < DM && n < q) ? om[(size_t)k * q + n] : 0.f; }, acc);
+    tile_product(sm.st, Operand{a.bnt + (size_t)o * DM * I, I, I, DM},
+                 Operand{a.om + (size_t)o * DM * q, q, q, DM}, it * T, qt * T, acc, gs);
     float* yp = a.yp + (size_t)o * I * q;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int m = it * T + ty * 4 + i, n = qt * T + tx * 4 + j;
+        const int m = it * T + sub(ty, i), n = qt * T + tx * 4 + j;
         if (m < I && n < q) yp[(size_t)m * q + n] = acc[i][j];
       }
     return;
   }
   job -= jobs_y;
-  // f partial: rows b of (left_part @ bnew_o)[:, DM-tile] dotted with right_part
+  // f partial: rows b of (left_part @ bnew_o)[:, DM-tile] dotted with right_part,
+  // each group of 4 columns as one FMA chain, the 16 groups added in order
   const int bt = job % a.nB, jt = (job / a.nB) % a.nD, o = job / (a.nB * a.nD);
-  const float* bn = a.bnew + (size_t)o * I * DM;
-  const Args& ar = a;
-  tile_gemm<T, T, TK, NT, true, false>(
-      sm, bt * T, jt * T, I,
-      [&](int b, int r) { return (b < B && r < I) ? left_part(ar, b, r) : 0.f; },
-      [=](int r, int s) { return (r < I && s < DM) ? bn[(size_t)r * DM + s] * gs : 0.f; }, acc);
+  tile_product(sm.st, Operand{a.lpt, B, B, I}, Operand{a.bnew + (size_t)o * I * DM, DM, DM, I},
+               bt * T, jt * T, acc, NoScale{}, gs);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = bt * T + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = sub(ty, i), b = bt * T + row;
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = jt * T + tx * 4 + j;
-      if (b < B && n < DM) s = fmaf(acc[i][j], right_part(a, b, n), s);
+      if (b < B && n < DM) s = fmaf(acc[i][j], a.rp[(size_t)b * DM + n], s);
     }
-    rowpart[ty * 4 + i][tx] = s;
+    sm.rowpart[row][tx] = s;
   }
   __syncthreads();
   if (tid < T) {
     const int b = bt * T + tid;
     float s = 0.f;
-    for (int p = 0; p < T / 4; ++p) s += rowpart[tid][p];
+    for (int p = 0; p < T / 4; ++p) s += sm.rowpart[tid][p];
     if (b < B) a.fp[((size_t)o * a.nD + jt) * B + b] = s;
   }
 }
 
-// D: fixed-order sums of the partials
-__global__ void __launch_bounds__(NT) finish_kernel(Args a) {
-  __shared__ float red[NT];
+__global__ void __launch_bounds__(NT) products_kernel(Args a) {
+  __shared__ ProductSmem sm;
+  const int tid = threadIdx.x;
+  if (a.growth_cap > 0.f) {  // the growth cap's factor on bnew, as 256 threads summed it
+    for (int v = tid; v < NR; v += NT) {
+      float s = 0.f;
+      for (int p = v; p < a.blocks_b; p += NR) s += a.part_b[2 * p + 1];
+      sm.red[v] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = NR / 2; s > 0; s >>= 1) {
+      for (int t = tid; t < s; t += NT) sm.red[t] += sm.red[t + s];
+      __syncthreads();
+    }
+    const float s = sm.red[0];
+    const float cap = (1.f + a.growth_cap) * a.stats[0];
+    const float gs = s > cap ? cap / fmaxf(s, 1e-30f) : 1.f;
+    if (blockIdx.x == 0 && tid == 0) *a.gsc = gs;
+    product_job(a, sm, blockIdx.x, Uniform{gs});
+  } else {
+    product_job(a, sm, blockIdx.x, NoScale{});
+  }
+}
+
+// ---- D: fixed-order sums of the partials
+
+__global__ void __launch_bounds__(NR) finish_kernel(Args a) {
+  __shared__ float red[NR];
   const size_t II = (size_t)a.I * a.I, Iq = (size_t)a.I * a.q, LB = (size_t)a.L * a.B;
-  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  const size_t e = (size_t)blockIdx.x * NR + threadIdx.x;
   if (a.with_gram && e < II) {
     float s = 0.f;
     for (int o = 0; o < a.L; ++o) s += a.gp[o * II + e];
@@ -314,12 +571,12 @@ __global__ void __launch_bounds__(NT) finish_kernel(Args a) {
   }
   if (blockIdx.x == 0) {
     float n2 = 0.f, sabs = 0.f;
-    for (int p = threadIdx.x; p < a.blocks_b; p += NT) {
+    for (int p = threadIdx.x; p < a.blocks_b; p += NR) {
       n2 += a.part_b[2 * p];
       sabs += a.part_b[2 * p + 1];
     }
-    n2 = block_sum<NT>(n2, red);
-    sabs = block_sum<NT>(sabs, red);
+    n2 = block_sum<NR>(n2, red);
+    sabs = block_sum<NR>(sabs, red);
     if (a.growth_cap > 0.f) {
       const float gs = *a.gsc;
       n2 = n2 * gs * gs;
@@ -333,6 +590,7 @@ __global__ void __launch_bounds__(NT) finish_kernel(Args a) {
 }
 
 int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
+long round4(long n) { return (n + 3) / 4 * 4; }
 
 void fill_counts(Args& a) {
   a.nI = cdiv(a.I, T);
@@ -340,48 +598,75 @@ void fill_counts(Args& a) {
   a.nQ = cdiv(a.q, T);
   a.nB = cdiv(a.B, T);
   a.blocks_a = a.nI * a.nD * a.L;
-  a.blocks_b = std::min(cdiv((long)a.L * a.I * a.DM, NT * 8), 1024);
+  a.blocks_b = std::min(cdiv((long)a.L * a.I * a.DM, NR * 8), 1024);
+  a.n_elem = cdiv(std::max({(long)a.L * a.B, (long)a.B * a.I, (long)a.B * a.DM}), NR);
+}
+
+// The scratch, in floats, each part 16-byte aligned: ld, rp, lpt, labt (then
+// bnt: lab's transpose is read before bnew's is written, and Mk = M <= D M =
+// DM), bt, db, gp, yp, fp, part_a, part_b.
+constexpr int NPARTS = 11;
+
+void scratch_parts(const Args& a, long (&n)[NPARTS]) {
+  const long L = a.L, I = a.I, DM = a.DM, B = a.B;
+  const long parts[NPARTS] = {L * B,      B * DM,    I * B,       L * DM * I,
+                              L * I * DM, L * I * DM, L * I * I,  L * I * a.q,
+                              L * a.nD * B, 2L * a.blocks_a, 2L * a.blocks_b};
+  for (int i = 0; i < NPARTS; ++i) n[i] = round4(parts[i]);
 }
 
 long scratch_floats(int L, int I, int DM, int B, int q) {
   Args a{};
   a.L = L; a.I = I; a.DM = DM; a.B = B; a.q = q;
   fill_counts(a);
-  return 2L * L * I * DM + (long)L * I * I + (long)L * I * q + (long)L * a.nD * B +
-         2L * a.blocks_a + 2L * a.blocks_b;
+  long n[NPARTS], total = 0;
+  scratch_parts(a, n);
+  for (long v : n) total += v;
+  return total;
 }
 
-// The four launches on `stream`; the inputs, outputs, shapes and options of
+int transpose_tiles(int n, int rows, int cols) { return n * cdiv(rows, TT) * cdiv(cols, TT); }
+
+// The six launches on `stream`; the inputs, outputs, shapes and options of
 // `a` are set, fill_counts(a) has run, and `scratch` holds scratch_floats().
 int launch(Args& a, float* scratch, cudaStream_t stream) {
   const int L = a.L, I = a.I, DM = a.DM, B = a.B, q = a.q;
-  a.bt = scratch;
-  a.db = a.bt + (size_t)L * I * DM;
-  a.gp = a.db + (size_t)L * I * DM;
-  a.yp = a.gp + (size_t)L * I * I;
-  a.fp = a.yp + (size_t)L * I * q;
-  a.part_a = a.fp + (size_t)L * a.nD * B;
-  a.part_b = a.part_a + 2 * a.blocks_a;
-
-  const size_t dyn = (size_t)B * sizeof(float);
-  if (dyn > 48 * 1024) {
-    if (dyn > 200 * 1024) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)dyn);
-    if (err != cudaSuccess) return (int)err;
+  long n[NPARTS];
+  scratch_parts(a, n);
+  float** parts[NPARTS] = {&a.ld, &a.rp, &a.lpt, &a.labt, &a.bt,    &a.db,
+                           &a.gp, &a.yp, &a.fp,  &a.part_a, &a.part_b};
+  for (int i = 0; i < NPARTS; ++i) {
+    *parts[i] = scratch;
+    scratch += n[i];
   }
-  grad_kernel<<<dim3(a.nI, a.nD, L), NT, dyn, stream>>>(a);
+  a.bnt = a.labt;
+
+  prep_kernel<<<1 + a.n_elem + transpose_tiles(L, I, a.Mk), NR, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  update_kernel<<<a.blocks_b, NT, 0, stream>>>(a);
+  const size_t dyn = (size_t)B * sizeof(float);
+  if (dyn + sizeof(GradSmem) > 48 * 1024) {
+    if (dyn + sizeof(GradSmem) > 227 * 1024) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(gradient_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gradient_kernel<<<a.blocks_a, NT, dyn, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int jobs = (a.with_gram ? L * a.nI * a.nI : 0) + L * a.nI * a.nQ + L * a.nB * a.nD;
-  reduce_kernel<<<jobs, NT, 0, stream>>>(a);
+  update_kernel<<<a.blocks_b, NR, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  transpose_kernel<<<transpose_tiles(L, I, DM), NR, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int jobs = (a.with_gram ? L * (a.nI * (a.nI + 1) / 2) : 0) + L * a.nI * a.nQ +
+                   L * a.nB * a.nD;
+  products_kernel<<<jobs, NT, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long n_fin = std::max({a.with_gram ? (long)I * I : 0L, (long)I * q, (long)L * B});
-  finish_kernel<<<cdiv(n_fin, NT), NT, 0, stream>>>(a);
+  finish_kernel<<<cdiv(n_fin, NR), NR, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

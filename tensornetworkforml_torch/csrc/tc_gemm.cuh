@@ -49,7 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tile_gemm.cuh"  // block_sum
+#include "tile_gemm.cuh"  // block_sum, the cp.async copies
 
 namespace {
 namespace tc {
@@ -111,27 +111,6 @@ inline bool aligned16(const void* p, int ld) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float to_tf32(float x) {

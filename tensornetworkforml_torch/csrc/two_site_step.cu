@@ -27,8 +27,9 @@
 // Design: the Pallas body is one program; here the step is a chain of
 // launches on one stream with no host work between them, counted as one
 // kernel by the wrapper:
-//   grad, update, reduce, finish  K2's four launches (presplit.cuh), the
-//                                 growth cap applied where reduce loads bn;
+//   prep ... finish               K2's six launches (presplit.cuh), the
+//                                 growth cap applied where products_kernel
+//                                 loads bn;
 //   polar_cluster / streaming     K1's iteration (polar_iterate.cuh) on
 //                                 (y, G, n2), writing Q into a_left;
 //   step_product_kernel           lenv_new = left Q as 64 x 64 tiles, each

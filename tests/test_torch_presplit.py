@@ -139,3 +139,44 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)  # not contiguous
     with pytest.raises(ValueError):
         tpk.two_site_presplit(*bad, 0.1, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,M,D,B,q", CUDA_SHAPES[:2])
+@pytest.mark.parametrize("act_fn,loss_fn", PAIRS[:2])
+def test_repeated_launches_are_bit_identical(L, M, D, B, q, act_fn, loss_fn, cuda):
+    inp = _inputs(L, M, D, B, q, seed=7 * M + B)
+    args = [torch.as_tensor(v, device=cuda) for v in inp.values()]
+    kw = dict(act_fn=act_fn, loss_fn=loss_fn, T=0.5)
+    first = tpk.two_site_presplit(*args, 0.05, 1e-3, **kw)
+    for _ in range(4):
+        again = tpk.two_site_presplit(*args, 0.05, 1e-3, **kw)
+        for name, a, b in zip(NAMES, first, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,M,D,B,q", CUDA_SHAPES)
+def test_without_gram_the_other_outputs_keep_their_bits(L, M, D, B, q, cuda):
+    inp = _inputs(L, M, D, B, q, seed=M + 3 * B)
+    args = [torch.as_tensor(v, device=cuda) for v in inp.values()]
+    full = tpk.two_site_presplit(*args, 0.05, 1e-3)
+    bare = tpk.two_site_presplit(*args, 0.05, 1e-3, with_gram=False)
+    assert bare[2].shape == (8, 128) and not bare[2].any()
+    for i in (0, 1, 3, 4, 5):
+        assert torch.equal(full[i].view(torch.int32), bare[i].view(torch.int32)), NAMES[i]
+    want = tpk.two_site_presplit_reference(*args, 0.05, 1e-3, with_gram=False)
+    _assert_outputs_close([t.cpu() for t in bare], [t.cpu() for t in want])
+
+
+@pytest.mark.cuda
+def test_a_large_batch_takes_the_dynamic_shared_memory_path(cuda):
+    # loss_der[o, :] sits in dynamic shared memory: 4 B floats beside ~19 KB
+    # of static shared memory, so B = 8192 passes the 48 KB default limit
+    inp = _inputs(3, 8, 2, 8192, 8, seed=11)
+    args = [torch.as_tensor(v, device=cuda) for v in inp.values()]
+    got = tpk.two_site_presplit(*args, 0.05, 1e-3, act_fn="softmax", loss_fn="cross_entropy")
+    torch.cuda.synchronize()
+    want = tpk.two_site_presplit_reference(*args, 0.05, 1e-3, act_fn="softmax",
+                                           loss_fn="cross_entropy")
+    _assert_outputs_close([t.cpu() for t in got], [t.cpu() for t in want])
