@@ -4,7 +4,11 @@ and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--other-csrc DIR]
+
+With --other-csrc, K3 built from another csrc directory (e.g. the parent
+commit's, from `git archive HEAD tensornetworkforml_torch/csrc`) is timed
+beside this one, and K3's rows of the kernels line give its time as parent_ms.
 
 The model is the flagship: 10-class pooled MNIST, N=196, M=128, D=2, L=10,
 linear/MSE, random weights from a seed, synthetic pooled images; the large
@@ -16,11 +20,13 @@ phase trains the same model at M=512. Phases:
                 (libpolar_iterate) must hold tf32 warpgroup products (HGMMA)
                 in their SASS;
   3. kernel  -- each kernel against its plain PyTorch version on the card:
-                K3 (chain) at the serving shapes, K2 (pre-split step) and K1
+                K3 (chain) at the serving shapes (the form that ran named at
+                each: latency or throughput), K2 (pre-split step) and K1
                 (polar iteration) on the inputs of a mid-chain step of the
                 flagship training batch, and each at a ragged shape;
   4. serve   -- the model saved to .npz and served by
-                Predictor.from_checkpoint on cuda (K3), held against the
+                Predictor.from_checkpoint on cuda (K3) at its default batch
+                of 256 and as bulk scoring at batch 8192, held against the
                 plain Predictor;
   5. train   -- train_model with svd_method="polar" on 4 batches of 256 (two
                 right and two left sweeps): K1 must launch 4 x 195 times; the
@@ -82,12 +88,14 @@ phase trains the same model at M=512. Phases:
                 splitting K6 into its four launches), on both M=512 routes and on the hybrid and
                 xla engines at M=256, the device time of a profiled sweep of
                 each (and the host time of the M=512 ones; K4a + K4b's device
-                time in the gram-free one), Predictor samples/s, and for
+                time in the gram-free one), Predictor samples/s with one
+                batch at B=256 and one at B=8192 profiled (K3's device time,
+                the rest, the idle share), and for
                 context torch.linalg.qr on K6's panel, the hybrid step (K2,
                 K1 and two products) beside K7 and polar_split_two_stage
                 beside K8.
 
-Launch counts are set to 0 just before each path (serve, train, hybrid,
+Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
 train_model, the M=512 training and the M=512 gram-free sweep) and read just
 after it; the comparisons with plain versions happen outside those windows.
@@ -353,6 +361,12 @@ def tensor_core_check() -> None:
 
 # ---- phase 3: each kernel against its plain version ------------------------
 
+def chain_form(M: int, B: int) -> str:
+    """The form K3 runs at (M, B) on this card, as the kernel's plan names it."""
+    p = env_scan.kernel_plan(M, B)
+    return f"{p['form']} form, C={p['C']} BT={p['BT']}"
+
+
 def compare_chain(name: str, sites: torch.Tensor, x: torch.Tensor) -> float:
     """K3 vs its plain version in f32 and f64 on the card; returns the f32 error."""
     got = env_scan.right_env_chain(sites, x)
@@ -365,8 +379,9 @@ def compare_chain(name: str, sites: torch.Tensor, x: torch.Tensor) -> float:
     err32 = float((got - ref32).abs().max())
     err64 = float((got.double() - ref64).abs().max())
     ok = max(err32, err64) <= TOL * scale
-    print(f"[kernel] right_env_chain {name}: max|ref|={scale:.4g} err_vs_f32={err32:.3g} "
-          f"err_vs_f64={err64:.3g} tol={TOL * scale:.3g} {'ok' if ok else 'FAIL'}")
+    print(f"[kernel] right_env_chain {name} ({chain_form(sites.shape[1], x.shape[0])}): "
+          f"max|ref|={scale:.4g} err_vs_f32={err32:.3g} err_vs_f64={err64:.3g} "
+          f"tol={TOL * scale:.3g} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name}: chain kernel disagrees with its plain version")
     return err32
@@ -459,13 +474,14 @@ def compare_polar(name, y0, g, n2, bmat) -> float:
 def phase_kernel(mps, x_big: torch.Tensor, captured: dict) -> dict:
     errs = {}
     sites = mps.sites[1:]  # the chain the serving forward hands K3
-    e = [compare_chain(f"N={N} M={M} B={B}", sites, x_big[:B, 1:]) for B in (BATCH, BIG)]
+    for B in (BATCH, BIG):
+        errs[("right_env_chain", B)] = compare_chain(f"N={N} M={M} B={B}", sites, x_big[:B, 1:])
     gen = torch.Generator().manual_seed(SEED + 1)
     m, n, b = 5, 21, 37  # ragged: M not a tile multiple, B not a batch tile
     small = torch.randn((n, m, 2, m), generator=gen) / np.sqrt(m)
     xs = torch.rand((b, n), generator=gen)
-    e.append(compare_chain(f"ragged M={m} n={n} B={b}", small.to(DEVICE), xs.to(DEVICE)))
-    errs["right_env_chain"] = max(e)
+    ragged = compare_chain(f"ragged M={m} n={n} B={b}", small.to(DEVICE), xs.to(DEVICE))
+    errs[("right_env_chain", BATCH)] = max(errs[("right_env_chain", BATCH)], ragged)
 
     args, kwargs = captured["k2"]
     e = [compare_presplit(f"flagship step {CAPTURE_STEP}", args, kwargs)]
@@ -515,7 +531,11 @@ def counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def phase_serve(mps, requests: np.ndarray) -> int:
+def phase_serve(mps, requests: np.ndarray) -> dict:
+    """Serve the flagship through Predictor.from_checkpoint on the card: the
+    default batch of 256 on requests of REQUEST_SIZES, then bulk scoring of
+    BIG requests at batch_size=BIG; K3's launches at each batch size."""
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "flagship.npz")
         save_checkpoint(mps, path)
@@ -524,12 +544,16 @@ def phase_serve(mps, requests: np.ndarray) -> int:
         pred.warmup()
         served = {n: pred.scores(requests[:n]) for n in REQUEST_SIZES}
         labels = pred.predict(requests[:BATCH])
-        launches = counts()["right_env_chain"]
+        launches[BATCH] = counts()["right_env_chain"]
+        reset_counts()
+        bulk = Predictor.from_checkpoint(path, batch_size=BIG)
+        served[BIG] = bulk.scores(requests[:BIG])
+        launches[BIG] = counts()["right_env_chain"]
         plain = Predictor.from_checkpoint(path, device=DEVICE, use_kernel=False)
-    if pred.device.type != "cuda" or not pred.use_kernel or plain.use_kernel:
+    if pred.device.type != "cuda" or not pred.use_kernel or not bulk.use_kernel or plain.use_kernel:
         fail("the default Predictor did not serve on cuda through the kernel")
-    if launches == 0:
-        fail("the serving path never launched the chain kernel")
+    if min(launches.values()) == 0:
+        fail(f"the serving path never launched the chain kernel at some batch size: {launches}")
     for n, got in served.items():
         want = plain.scores(requests[:n])
         if got.shape != (n, L) or not np.isfinite(got).all():
@@ -541,8 +565,9 @@ def phase_serve(mps, requests: np.ndarray) -> int:
     if labels.shape != (BATCH,) or labels.min() < 0 or labels.max() >= L:
         fail(f"predict gave labels of shape {labels.shape} outside [0, {L})")
     print(f"[serve] Predictor.from_checkpoint (default device cuda, kernel) on requests "
-          f"{REQUEST_SIZES}: shapes ok, scores match the plain Predictor within {TOL:g} x "
-          f"max|f|; K3 launches {launches}")
+          f"{REQUEST_SIZES} at batch {BATCH} ({chain_form(M, BATCH)}), and {BIG} requests at "
+          f"batch {BIG} ({chain_form(M, BIG)}): shapes ok, scores match the plain Predictor "
+          f"within {TOL:g} x max|f|; K3 launches {launches[BATCH]} and {launches[BIG]}")
     return launches
 
 
@@ -1879,11 +1904,15 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
     traffic and for consecutive steps of a sweep."""
     ms = {}
     sites = mps.sites[1:]
+    other = other_chain_lib(OTHER_CSRC) if OTHER_CSRC else None
     for B in (BATCH, BIG):
         x = x_big[:B, 1:]
         ms[("right_env_chain", B)] = turns(
-            f"right_env_chain B={B}", lambda: env_scan.right_env_chain(sites, x),
+            f"right_env_chain B={B} ({chain_form(M, B)})",
+            lambda: env_scan.right_env_chain(sites, x),
             lambda: env_scan.right_env_chain_reference(sites, x))
+        if other is not None:
+            ms[("parent", B)] = other_turns(other, sites, x, B)
     args, kwargs = captured["k2"]
     ms["two_site_presplit"] = turns(
         f"two_site_presplit L={L} I={M * D} DM={D * M} B={BATCH} q={M}",
@@ -1939,13 +1968,81 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
             t = host_ms(lambda: pred.scores(requests[:B]))
             print(f"[timing] Predictor.scores B={B} {'kernel' if use_kernel else 'plain'}: "
                   f"{t:.3f} ms/batch, {B / t * 1e3:.0f} samples/s")
+            if use_kernel:
+                profile_batch(pred, requests[:B], t)
     return ms
 
 
+def profile_batch(pred, requests, wall_ms) -> None:
+    """Device time of one Predictor.scores batch by kernel: K3's, the rest
+    (the label closure, chain_scores, and the copies), and the idle share
+    against the unprofiled batch time ``wall_ms``."""
+    by = device_time_table(lambda: pred.scores(requests))["by_kernel_ms"]
+    k3 = sum(v for k, v in by.items() if "chain_kernel" in k)
+    busy = sum(by.values())
+    top = sorted(((k, v) for k, v in by.items() if "chain_kernel" not in k), key=lambda kv: -kv[1])
+    print(f"[profile] Predictor.scores B={pred.batch_size}: device busy {busy:.3f} ms of "
+          f"{wall_ms:.3f} ms unprofiled (idle share {max(0.0, 1 - busy / wall_ms):.3f}); "
+          f"K3 {k3:.3f} ms, other {busy - k3:.3f} ms: "
+          + "; ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:5]))
+
+
+def other_chain_lib(csrc: str):
+    """env_scan.cu built from another csrc directory (e.g. the parent commit's,
+    from `git archive HEAD tensornetworkforml_torch/csrc`), bound like K3's."""
+    import ctypes
+    import shutil
+
+    tmp = tempfile.mkdtemp()
+    shutil.copytree(csrc, os.path.join(tmp, "csrc"))
+    so = os.path.join(tmp, "libenv_scan_other.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                           os.path.join(tmp, "csrc", "env_scan.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc failed on env_scan.cu from {csrc}: {proc.stderr[-2000:]}")
+    lib, ref = ctypes.CDLL(so), env_scan._lib()
+    for sym in ("tnml_right_env_chain", "tnml_cuda_error_string"):
+        getattr(lib, sym).argtypes = getattr(ref, sym).argtypes
+        getattr(lib, sym).restype = getattr(ref, sym).restype
+    return lib
+
+
+def other_turns(lib, sites, x, B) -> float:
+    """The other build's K3 and this one in turns (other, this, this, other);
+    the other's mean ms, after checking that it gives this K3's function."""
+    n, m = sites.shape[0], sites.shape[1]
+
+    def run():
+        out = torch.empty((B, m), dtype=torch.float32, device=DEVICE)
+        err = lib.tnml_right_env_chain(sites.data_ptr(), x.data_ptr(), x.stride(0),
+                                       out.data_ptr(), n, m, B,
+                                       torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the other build's K3 failed: cudaError {err}")
+        return out
+
+    gap = float((run() - env_scan.right_env_chain(sites, x)).abs().max())
+    this = lambda: env_scan.right_env_chain(sites, x)  # noqa: E731
+    o1, t1, t2, o2 = cuda_ms(run), cuda_ms(this), cuda_ms(this), cuda_ms(run)
+    print(f"[timing] right_env_chain B={B}: this K3 {t1 * 1e3:.1f} / {t2 * 1e3:.1f} us, the "
+          f"other build's {o1 * 1e3:.1f} / {o2 * 1e3:.1f} us (in turns; outputs "
+          f"{gap:.3g} apart)")
+    return (o1 + o2) / 2
+
+
 T_START = time.perf_counter()
+OTHER_CSRC = None  # --other-csrc: a csrc directory whose K3 is timed beside this one
 
 
 def main() -> None:
+    global OTHER_CSRC
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
+    ap.add_argument("--other-csrc", help="time K3 built from this csrc directory beside this "
+                    "one (e.g. the parent commit's)")
+    OTHER_CSRC = ap.parse_args().other_csrc
     kind = phase_device()
     phase_build()
     requests, _ = pooled(BIG, seed=SEED)
@@ -1962,7 +2059,7 @@ def main() -> None:
     captured = capture_step(mps, torch.as_tensor(x_tr[:BATCH], device=DEVICE),
                             torch.as_tensor(y_tr[:BATCH], device=DEVICE), CAPTURE_STEP)
     errs = phase_kernel(mps, x_big, captured)
-    launches = {"right_env_chain": phase_serve(mps, requests)}
+    launches = {("right_env_chain", B): n for B, n in phase_serve(mps, requests).items()}
     launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
                                                            x_fresh)
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
@@ -2010,7 +2107,8 @@ def main() -> None:
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
     I_big, J_big = large["bmat"].shape
     work = {
-        "right_env_chain": chain_work(N - 1, M, BATCH),
+        ("right_env_chain", BATCH): chain_work(N - 1, M, BATCH),
+        ("right_env_chain", BIG): chain_work(N - 1, M, BIG),
         "polar_iterate": polar_work(M * D, M, *pe),
         "two_site_presplit": presplit_work(L, M * D, M, D * M, BATCH, M),
         "gramfree_sketch": sketch_work(I_big, J_big, M_LARGE, False),
@@ -2035,10 +2133,11 @@ def main() -> None:
             return k8_bound_ms(M * D, L * D * M, M, pe)
         return (tc_bound_ms if name in tensor_core else bound_ms)(*work[name])
 
-    for name, (flops, nbytes) in list(work.items()) + [
-            ("right_env_chain B=8192", chain_work(N - 1, M, BIG))]:
+    for name, (flops, nbytes) in work.items():
         b_ms, b_by = bound_ms(flops, nbytes)
-        label = name if isinstance(name, str) else f"{name[0]} M={name[1]}"
+        label = (name if isinstance(name, str) else
+                 f"{name[0]} B={name[1]}" if name[0] == "right_env_chain" else
+                 f"{name[0]} M={name[1]}")
         line = (f"[bound] {label}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> f32 bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s and "
                 f"{HBM_BYTES / 1e12:g} TB/s")
@@ -2054,6 +2153,8 @@ def main() -> None:
     for name, source, replaces, key in (
         ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
          ("right_env_chain", BATCH)),
+        ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
+         ("right_env_chain", BIG)),
         ("polar_iterate", "polar_iterate.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:566", "polar_iterate"),
         ("polar_iterate", "polar_iterate.cu",
@@ -2094,6 +2195,12 @@ def main() -> None:
             # they compute
             "library_ms": ms[key][2],
         }
+        if name == "right_env_chain":
+            row["shape"] = f"n={N - 1} M={M} B={key[1]}"
+            row["form"] = chain_form(M, key[1])
+            # this K3 beside the other build's, timed in turns, where --other-csrc
+            # named one
+            row["parent_ms"] = ms.get(("parent", key[1]))
         if name == "polar_sketch_gram":
             row["shape"] = (f"I={I_big} J={J_big} q={M_LARGE}"
                             if key == ("polar_sketch_gram", M_LARGE)

@@ -17,10 +17,12 @@ The counterpart of the JAX package's ``ops/svd.py``; every method is ported:
     CUDA tensor; above, ``gramfree_split``, whose two streaming reductions
     over B are the kernels K4a and K4b.
   * ``"rangefinder"`` -- the randomized rangefinder split, canonical gauge
-    only: from I = 128 rows ``ops/kernels/split_kernel.py::
-    rangefinder_split`` (the kernel K6 on a CUDA tensor), below it
-    ``_rangefinder_split`` (sketch, QR, Rayleigh-Ritz, one polish).
-  * ``"rangefinder_pallas"`` -- ``rangefinder_split`` at every I.
+    only: from I = 128 to 2048 rows ``ops/kernels/split_kernel.py::
+    rangefinder_split`` (the kernel K6 on a CUDA tensor), at other I
+    ``_rangefinder_split`` (sketch, QR, Rayleigh-Ritz, one polish), as the
+    JAX package sends what its kernel does not take to its own.
+  * ``"rangefinder_pallas"`` -- ``rangefinder_split`` at every I (on a CUDA
+    tensor above 2048 rows it raises).
 
 The polar and rangefinder choices go by shape alone, on every device, as the
 JAX package's go on its chip. Its CPU fallback differs: there ``polar`` runs
@@ -37,9 +39,12 @@ import torch
 _OMEGA_SEED = 0x52464E44  # the seed of the JAX package's fixed sketch matrix
 # rows above which the polar split goes gram-free, and from which the
 # rangefinder split runs K6 (the JAX package's thresholds, kept so that both
-# compute the same split at every I)
+# compute the same split at every I); above _RANGEFINDER_KERNEL_MAX_I, the
+# rows K6 factors its panels in (tnml_rangefinder_max_rows), it runs
+# _rangefinder_split, on every device
 _GRAMFREE_MIN_I = 768
 _RANGEFINDER_KERNEL_MIN_I = 128
+_RANGEFINDER_KERNEL_MAX_I = 2048
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,7 +129,9 @@ def truncated_svd_split(
             raise ValueError("rangefinder split does not support rank_mode='reference'")
         from tensornetworkforml_torch.ops.kernels import split_kernel
 
-        if method == "rangefinder_pallas" or bmat.shape[0] >= _RANGEFINDER_KERNEL_MIN_I:
+        I = bmat.shape[0]
+        if method == "rangefinder_pallas" or (
+                _RANGEFINDER_KERNEL_MIN_I <= I <= _RANGEFINDER_KERNEL_MAX_I):
             return split_kernel.rangefinder_split(bmat, rank)
         return _rangefinder_split(bmat, rank, keep, split_mode)
     raise ValueError(f"unknown SVD method {method!r}")

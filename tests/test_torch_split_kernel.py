@@ -1,8 +1,9 @@
 """K6, the rangefinder split kernel (``ops/kernels/split_kernel.py``):
 ``hqr_orth`` and ``rangefinder_split_plain`` against the JAX package's
 ``_hqr_orth`` and ``rangefinder_split_pallas`` (interpret mode) on the CPU,
-the dispatch of ``svd_method="rangefinder"`` by shape, and the CUDA kernel
-against its plain version on a card.
+the dispatch of ``svd_method="rangefinder"`` by shape (K6 from 128 to 2048
+rows, ``_rangefinder_split`` elsewhere), and the CUDA kernel against its plain
+version on a card.
 
 JAX is imported inside the fixtures and tests, so that the tests marked
 ``cuda`` run on a machine with a card and no JAX:
@@ -230,16 +231,35 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
     assert tsk.rangefinder_split.launches == before  # the plain version counts nothing
 
 
-@pytest.mark.parametrize("method,I,route", [
-    ("rangefinder", 127, "xla"), ("rangefinder", 128, "kernel"),
-    ("rangefinder_pallas", 40, "kernel"), ("rangefinder_pallas", 128, "kernel"),
-])
-def test_rangefinder_methods_dispatch_by_shape(method, I, route, monkeypatch):
+def _route(monkeypatch):
+    """Spy on both rangefinder splits; returns the list of routes taken."""
     calls = []
     monkeypatch.setattr(tsk, "rangefinder_split", lambda b, r: calls.append("kernel") or (b, r))
     monkeypatch.setattr(tsvd, "_rangefinder_split",
                         lambda b, r, *a: calls.append("xla") or (b, r))
-    tsvd.truncated_svd_split(torch.zeros((I, 2 * I)), 8, method, split_mode="canonical")
+    return calls
+
+
+@pytest.mark.parametrize("method,I,route", [
+    ("rangefinder", 127, "xla"), ("rangefinder", 128, "kernel"),
+    ("rangefinder_pallas", 40, "kernel"), ("rangefinder_pallas", 128, "kernel"),
+    ("rangefinder", 2048, "kernel"), ("rangefinder", 2049, "xla"),
+    ("rangefinder_pallas", 2049, "kernel"),
+])
+def test_rangefinder_methods_dispatch_by_shape(method, I, route, monkeypatch):
+    calls = _route(monkeypatch)
+    tsvd.truncated_svd_split(torch.zeros((I, 8)), 8, method, split_mode="canonical")
+    assert calls == [route]
+
+
+@pytest.mark.parametrize("I,route", [(127, "xla"), (128, "kernel"), (200, "kernel"),
+                                     (201, "xla")])
+def test_rangefinder_takes_the_plain_split_above_the_kernel_rows(I, route, monkeypatch):
+    """The dispatch reads the kernel's row limit from ``_RANGEFINDER_KERNEL_MAX_I``
+    (patched small here), by shape alone, on every device."""
+    monkeypatch.setattr(tsvd, "_RANGEFINDER_KERNEL_MAX_I", 200)
+    calls = _route(monkeypatch)
+    tsvd.truncated_svd_split(torch.zeros((I, 8)), 8, "rangefinder", split_mode="canonical")
     assert calls == [route]
 
 
@@ -329,6 +349,35 @@ def test_kernel_keeps_the_columns_where_they_fit_on_card(cuda):
     rows = lib.tnml_rangefinder_max_rows()
     with pytest.raises(ValueError, match="rows"):
         tsk.rangefinder_split(torch.zeros((rows + 1, 16), device=cuda), 4)
+
+
+@pytest.mark.cuda
+def test_the_dispatch_row_limit_is_the_kernels_on_card(cuda):
+    assert tsvd._RANGEFINDER_KERNEL_MAX_I == tsk._lib().tnml_rangefinder_max_rows()
+
+
+@pytest.mark.cuda
+def test_rangefinder_splits_above_the_kernel_rows_on_card(cuda):
+    """``svd_method="rangefinder"`` at I = 2049, one row past K6's, returns
+    a split on the card (``_rangefinder_split``), held to K1's limits against
+    a float64 exact split: the projector 1e-3, ``Q R`` 1e-4 of max|B| and
+    the isometry 1e-4."""
+    I, J, rank = 2049, 2560, 32
+    b = torch.as_tensor(_gapped(I, J, rank, seed=9)).to(cuda)
+    before = tsk.rangefinder_split.launches
+    q, r = tsvd.truncated_svd_split(b, rank, "rangefinder", split_mode="canonical")
+    torch.cuda.synchronize()
+    assert tsk.rangefinder_split.launches == before  # not K6
+    assert q.shape == (I, rank) and r.shape == (rank, J) and q.device.type == "cuda"
+    assert torch.isfinite(q).all() and torch.isfinite(r).all()
+    b64 = b.double()
+    u = torch.linalg.svd(b64, full_matrices=False)[0][:, :rank]
+    q64 = q.double()
+    assert float((q64 @ q64.T - u @ u.T).abs().max()) <= CARD_PROJ_TOL
+    bmax = float(b64.abs().max())
+    assert float((q64 @ r.double() - u @ (u.T @ b64)).abs().max()) <= CARD_REC_TOL * bmax
+    eye = torch.eye(rank, dtype=torch.float64, device=cuda)
+    assert float((q64.T @ q64 - eye).abs().max()) <= CARD_ISO_TOL
 
 
 @pytest.mark.cuda
