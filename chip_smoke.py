@@ -6,9 +6,11 @@ Run from the root of the repository, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--other-csrc DIR]
 
-With --other-csrc, K3 built from another csrc directory (e.g. the parent
-commit's, from `git archive HEAD tensornetworkforml_torch/csrc`) is timed
-beside this one, and K3's rows of the kernels line give its time as parent_ms.
+With --other-csrc, K3, K7, K2, K1 and K8 built from another csrc directory
+(e.g. the parent commit's, from `git archive HEAD tensornetworkforml_torch/csrc`)
+are timed beside this build's in turns, and their rows of the kernels line
+give the other build's time as parent_ms; K7 is also held bit for bit against
+the other build's K7 at its four shapes.
 
 The model is the flagship: 10-class pooled MNIST, N=196, M=128, D=2, L=10,
 linear/MSE, random weights from a seed, synthetic pooled images; the large
@@ -46,10 +48,13 @@ phase trains the same model at M=512. Phases:
   7. fused   -- K7 (the whole two-site step) against its plain version on the
                 captured step's inputs, with the growth cap and renorm_envs,
                 at a ragged shape and at M=256 (K1 at I = 512 inside it);
-                fused_epoch with engine="fused" on 2 batches: K7 must
-                launch 2 x 195 times and K1 and K2 not at all; the first
-                sweep is held against the same sweep with K7's plain version
-                and against the xla-engine polar sweep;
+                fused_epoch with engine="fused" on 2 batches, each sweep's
+                195 steps issued from C in one call of the sweep entry: K7
+                must launch 2 x 195 times and K1 and K2 not at all; the
+                sweep entry's outputs equal, bit for bit, 195 per-step K7
+                calls on the same inputs; the first sweep is held against
+                the same sweep with K7's plain version and against the
+                xla-engine polar sweep;
   8. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
                 two-site matrix, held against hybrid_polar_split (and, in
                 phase 11, once on the M=512 step's two-site matrix);
@@ -323,16 +328,72 @@ KERNELS = {  # source name -> the function that builds and binds it
 }
 
 
+# --other-csrc: the sources built from another csrc directory, and the
+# module whose library each one stands in for
+OTHER_SOURCES = {"env_scan": env_scan, "two_site_step": step_kernel,
+                 "presplit": presplit_kernel, "polar_iterate": polar_split}
+OTHER = {}  # source name -> the other build's library
+
+
+def build_other(name: str, tmp: str) -> str:
+    """``name``.cu from the other csrc directory (copied to ``tmp``)."""
+    so = os.path.join(tmp, f"lib{name}_other.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                           os.path.join(tmp, "csrc", f"{name}.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"nvcc failed on {name}.cu from {OTHER_CSRC}: {proc.stderr[-2000:]}")
+    return so
+
+
+def bind_other(name: str, so: str):
+    """The other build of ``name`` loaded and bound like this build's library:
+    every C entry this build's wrapper binds that the other one has."""
+    import ctypes
+
+    lib, ref = ctypes.CDLL(so), OTHER_SOURCES[name]._lib()
+    for sym in [k for k in vars(ref) if k.startswith("tnml_")]:
+        if hasattr(lib, sym):
+            getattr(lib, sym).argtypes = getattr(ref, sym).argtypes
+            getattr(lib, sym).restype = getattr(ref, sym).restype
+    return lib
+
+
+class using_other:
+    """Within the block, the wrapper of ``name``'s module launches the other
+    build's library."""
+
+    def __init__(self, name: str):
+        self.module = OTHER_SOURCES[name]
+        self.lib, self.own = OTHER[name], self.module._lib
+
+    def __enter__(self):
+        self.module._lib = lambda: self.lib
+
+    def __exit__(self, *exc):
+        self.module._lib = self.own
+
+
 def phase_build() -> None:
+    import shutil
+
     def build(name):
         t0 = time.perf_counter()
         KERNELS[name]()
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(OTHER_SOURCES)) as pool:
+        others = []
+        if OTHER_CSRC:
+            tmp = tempfile.mkdtemp()
+            shutil.copytree(OTHER_CSRC, os.path.join(tmp, "csrc"))
+            others = [pool.submit(build_other, name, tmp) for name in OTHER_SOURCES]
         done = list(pool.map(build, KERNELS))
-    print(f"[build] {len(done)} sources in {time.perf_counter() - t0:.2f} s, in parallel")
+        OTHER.update((name, bind_other(name, job.result()))
+                     for name, job in zip(OTHER_SOURCES, others))
+    print(f"[build] {len(done)} sources in {time.perf_counter() - t0:.2f} s, in parallel"
+          + (f", with {', '.join(OTHER)} from {OTHER_CSRC}" if OTHER else ""))
     for name, seconds in done:
         log = open(f"{_build.library_path(name)}.log").read()
         report = [ln.split("ptxas info    : ")[-1].strip() for ln in log.splitlines()
@@ -583,7 +644,7 @@ def plain_versions():
             mock.patch.object(sweep_mod, "polar_iterate", polar_split.polar_iterate_reference),
             mock.patch.object(sweep_mod, "two_site_presplit",
                               presplit_kernel.two_site_presplit_reference),
-            mock.patch.object(sweep_mod, "two_site_step", step_kernel.two_site_step_reference))
+            mock.patch.object(sweep_mod, "two_site_sweep", step_kernel.two_site_sweep_reference))
 
 
 def one_sweep(mps, x, y, engine, plain=False):
@@ -911,10 +972,16 @@ def compare_step(name, args, kw) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
-def phase_step_kernels(captured) -> float:
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def step_cases(captured) -> list:
+    """K7's four shapes: the captured flagship step, with the growth cap and
+    renorm_envs, a ragged shape, and M=256 (K1 at I = 512 inside K7)."""
     args = step_args(captured)
     gen = torch.Generator().manual_seed(SEED + 8)
-    cases = [
+    return [
         (f"flagship step {CAPTURE_STEP}", args, {}),
         (f"flagship step {CAPTURE_STEP}, growth_cap=1e-3, renorm_envs", args,
          dict(growth_cap=1e-3, renorm_envs=True)),
@@ -922,8 +989,26 @@ def phase_step_kernels(captured) -> float:
         ("M=256 B=64, growth_cap=1e-3", random_step_args(L, 256, 64, gen),
          dict(growth_cap=1e-3)),
     ]
-    return max(compare_step(name, a, dict(act_fn="linear", loss_fn="MSE", **kw))
-               for name, a, kw in cases)
+
+
+def phase_step_kernels(captured) -> float:
+    """K7 against its plain version at its four shapes; with --other-csrc also
+    against the other build's K7, bit for bit."""
+    cases = [(name, a, dict(act_fn="linear", loss_fn="MSE", **kw))
+             for name, a, kw in step_cases(captured)]
+    err = max(compare_step(name, a, kw) for name, a, kw in cases)
+    if "two_site_step" in OTHER:
+        for name, a, kw in cases:
+            got = step_kernel.two_site_step(*a, **kw)
+            with using_other("two_site_step"):
+                other = step_kernel.two_site_step(*a, **kw)
+            differ = [n for n, x, y in zip(("a_left", "lab_new", "lenv_new", "f_new", "metrics"),
+                                           got, other) if not same_bits(x, y)]
+            if differ:
+                fail(f"K7 {name}: {differ} differ from the other build's ({OTHER_CSRC})")
+        print(f"[kernel] two_site_step at its {len(cases)} shapes: every output the same bits "
+              f"as the other build's K7 ({OTHER_CSRC})")
+    return err
 
 
 def phase_fused(mps0, x_tr, y_tr, x_fresh) -> dict:
@@ -948,9 +1033,29 @@ def phase_fused(mps0, x_tr, y_tr, x_fresh) -> dict:
           f"launches {launched['two_site_step']} = {FUSED_BATCHES} x {STEPS}, K1 and K2 "
           f"{launched['polar_iterate']} and {launched['two_site_presplit']}; batch accs "
           f"{[round(float(a), 4) for a in accs]}")
-    kern = one_sweep(mps0, xe[0], ye[0], "fused")
+    seen = {}
+
+    def spy(*args, **kwargs):
+        seen["args"], seen["kwargs"] = args, kwargs
+        return step_kernel.two_site_sweep(*args, **kwargs)
+
+    with mock.patch.object(sweep_mod, "two_site_sweep", spy):
+        kern = one_sweep(mps0, xe[0], ye[0], "fused")
     if kern[2].dtype != torch.float32:
         fail(f"the fused sweep's f_final is {kern[2].dtype}, not float32")
+    # the sweep entry (every step issued from C) against the loop of per-step K7
+    # calls in this build, on the same sweep's inputs
+    args, kwargs = seen["args"], seen["kwargs"]
+    got = step_kernel.two_site_sweep(*args, **kwargs)
+    want = step_kernel.two_site_sweep_reference(*args, step=step_kernel.two_site_step, **kwargs)
+    differ = [n for n, a, b in zip(("a_lefts", "lab_final", "f_final", "metrics"), got, want)
+              if not same_bits(a, b)]
+    gap = float(((got[4] - want[4]).abs() / want[4].abs().clamp(min=1e-30)).max())
+    if differ or gap > K2_TOL:
+        fail(f"the sweep entry differs from the per-step K7 loop: {differ}, mean|f| {gap:.3g}")
+    print(f"[fused] the sweep entry (one call, {STEPS} steps) against {STEPS} per-step K7 calls: "
+          f"a_lefts, the label core, f_final and the metrics the same bits; mean|f| (K2's "
+          f"stats row against torch's mean) {gap:.3g} relative (tol {K2_TOL:g})")
     hold_sweeps("fused vs its plain version", kern,
                 one_sweep(mps0, xe[0], ye[0], "fused", plain=True), x_fresh)
     hold_sweeps("fused vs xla", kern, one_sweep(mps0, xe[0], ye[0], "xla"), x_fresh)
@@ -1645,9 +1750,12 @@ def presplit_work(Lb, I, Mk, DM, B, q):
     return flops, nbytes
 
 
-def device_time_table(fn) -> dict:
+def device_time_table(fn, timeline: bool = False) -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler).
-    A first, empty profile pays the tracer's start-up outside the window."""
+    A first, empty profile pays the tracer's start-up outside the window.
+    With ``timeline`` the device events' intervals come too (from the
+    exported trace), since kernels launched with programmatic dependent
+    launch overlap: each one's time then counts the wait for its predecessor."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]):
@@ -1667,7 +1775,26 @@ def device_time_table(fn) -> dict:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             table[ev.key] = dev_us / 1e3
-    return {"wall_ms": wall, "by_kernel_ms": table}
+    out = {"wall_ms": wall, "by_kernel_ms": table}
+    if timeline:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        out["intervals"] = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return out
+
+
+def union_ms(intervals) -> float:
+    """The time covered by (start, end) intervals in us, in ms."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def host_time_line(what, fn) -> None:
@@ -1695,9 +1822,10 @@ PROFILE_KERNELS = {
     "K2": ("presplit::prep_kernel", "presplit::gradient_kernel", "presplit::update_kernel",
            "presplit::transpose_kernel", "presplit::products_kernel", "presplit::finish_kernel"),
     "K4/K5": ("tc_gemm_kernel", "tc_sketch_gram_kernel", "split_sum_kernel"),
-    # K7's own launches; its other seven share K2's and K1's names, and K8's
-    # launches are K5's and K1's (one source of device code for each)
-    "K7": ("step_product_kernel", "step_scale_kernel"),
+    # K7's own launches (one, two with renorm_envs); its other seven share K2's
+    # and K1's names, and K8's launches are K5's and K1's (one source of device
+    # code for each)
+    "K7": ("step_env_kernel", "step_store_kernel"),
 }
 
 # a fused sweep, where no K1 or K2 runs: every launch of these names is K7's
@@ -1731,15 +1859,26 @@ def profile_owner(name: str, groups=PROFILE_KERNELS):
 def summarise_profile(engine, prof, wall_ms, groups=PROFILE_KERNELS) -> None:
     """Device time by kernel over one profiled sweep. The idle share is taken
     against the unprofiled sweep's wall time ``wall_ms``: the tracer inflates
-    the host side of a sweep of ~30 small launches per step."""
+    the host side of a sweep of ~30 small launches per step. Where the
+    profile holds the timeline, the busy time and each kernel's share are
+    the time their intervals cover, since overlapping launches (K7's chain)
+    would count twice in a sum."""
     by = prof["by_kernel_ms"]
-    busy = sum(by.values())
-    ours = {kern: sum(v for k, v in by.items() if profile_owner(k, groups) == kern)
-            for kern in groups}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:5]
+    if "intervals" in prof:
+        spans = prof["intervals"]
+        busy = union_ms([(a, b) for _, a, b in spans])
+        ours = {kern: union_ms([(a, b) for n, a, b in spans if profile_owner(n, groups) == kern])
+                for kern in groups}
+        summed = f"; kernel times sum to {sum(by.values()):.1f} ms"
+    else:
+        busy = sum(by.values())
+        ours = {kern: sum(v for k, v in by.items() if profile_owner(k, groups) == kern)
+                for kern in groups}
+        summed = ""
     print(f"[profile] {engine} sweep: device busy {busy:.1f} ms of {wall_ms:.1f} ms unprofiled "
           f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}; profiled wall "
-          f"{prof['wall_ms']:.1f} ms); "
+          f"{prof['wall_ms']:.1f} ms{summed}); "
           + ", ".join(f"{kern} {v:.1f} ms" for kern, v in ours.items())
           + f", other {busy - sum(ours.values()):.1f} ms; top: "
           + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
@@ -1904,7 +2043,7 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
     traffic and for consecutive steps of a sweep."""
     ms = {}
     sites = mps.sites[1:]
-    other = other_chain_lib(OTHER_CSRC) if OTHER_CSRC else None
+    other = OTHER.get("env_scan")
     for B in (BATCH, BIG):
         x = x_big[:B, 1:]
         ms[("right_env_chain", B)] = turns(
@@ -1932,6 +2071,23 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
         f"polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={M}",
         lambda: polar_split.polar_split(bmat, M),
         lambda: polar_split.polar_split_reference(bmat, M), reps=10)
+    wide_name, wide_args, wide_kw = step_cases(captured)[3]
+    ms["two_site_step_wide"] = cuda_ms(lambda: step_kernel.two_site_step(*wide_args, **wide_kw),
+                                       10)
+    print(f"[timing] two_site_step {wide_name}: kernel {ms['two_site_step_wide'] * 1e3:.1f} us")
+    if OTHER:  # this build beside the other one, in turns
+        for key, source, what, fn, reps in (
+                ("two_site_step", "two_site_step", f"two_site_step L={L} M={M} B={BATCH}",
+                 lambda: step_kernel.two_site_step(*sargs), 10),
+                ("two_site_step_wide", "two_site_step", f"two_site_step {wide_name}",
+                 lambda: step_kernel.two_site_step(*wide_args, **wide_kw), 10),
+                ("two_site_presplit", "presplit", "two_site_presplit",
+                 lambda: presplit_kernel.two_site_presplit(*args, **kwargs), 20),
+                ("polar_iterate", "polar_iterate", "polar_iterate",
+                 lambda: polar_split.polar_iterate(y0, g, n2), 10),
+                ("polar_split", "polar_iterate", "polar_split",
+                 lambda: polar_split.polar_split(bmat, M), 10)):
+            ms[("parent", key)] = other_build_turns(what, source, fn, reps)
 
     def hybrid_step():  # what the hybrid engine runs per step: K2, K1, two products
         bnew, y, gr, _, left_part, stats = presplit_kernel.two_site_presplit(*args, **kwargs)
@@ -1957,10 +2113,15 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
         print(f"[timing] sweep engine={engine} (polar split): {v[0]:.1f} / {v[1]:.1f} ms, "
               f"{BATCH / (sum(v) / 2) * 1e3:.0f} samples/s")
     ms["sweep"] = {k: sum(v) / 2 for k, v in sweep_ms.items()}
+    idle = {}
     for engine in ("xla", "hybrid", "fused"):
-        summarise_profile(engine, device_time_table(lambda: one_sweep(mps, xb, yb, engine)),
-                          ms["sweep"][engine],
-                          groups=FUSED_PROFILE if engine == "fused" else PROFILE_KERNELS)
+        _, busy = summarise_profile(
+            engine, device_time_table(lambda: one_sweep(mps, xb, yb, engine), timeline=True),
+            ms["sweep"][engine], groups=FUSED_PROFILE if engine == "fused" else PROFILE_KERNELS)
+        idle[engine] = max(0.0, 1 - busy / ms["sweep"][engine])
+    print("[timing] sweeps at M=128, B=256: " + ", ".join(
+        f"{engine} {ms['sweep'][engine]:.1f} ms (idle share {idle[engine]:.3f})"
+        for engine in ("fused", "hybrid", "xla")))
 
     for B in (BATCH, BIG):
         for use_kernel in (True, False):
@@ -1987,25 +2148,19 @@ def profile_batch(pred, requests, wall_ms) -> None:
           + "; ".join(f"{k[:40]} {v * 1e3:.1f} us" for k, v in top[:5]))
 
 
-def other_chain_lib(csrc: str):
-    """env_scan.cu built from another csrc directory (e.g. the parent commit's,
-    from `git archive HEAD tensornetworkforml_torch/csrc`), bound like K3's."""
-    import ctypes
-    import shutil
+def other_build_turns(what, source, fn, reps) -> float:
+    """``fn`` with the other build's library of ``source`` and with this
+    build's, in turns (other, this, this, other); the other's mean ms."""
+    def run(other):
+        if other:
+            with using_other(source):
+                return cuda_ms(fn, reps)
+        return cuda_ms(fn, reps)
 
-    tmp = tempfile.mkdtemp()
-    shutil.copytree(csrc, os.path.join(tmp, "csrc"))
-    so = os.path.join(tmp, "libenv_scan_other.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                           os.path.join(tmp, "csrc", "env_scan.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        fail(f"nvcc failed on env_scan.cu from {csrc}: {proc.stderr[-2000:]}")
-    lib, ref = ctypes.CDLL(so), env_scan._lib()
-    for sym in ("tnml_right_env_chain", "tnml_cuda_error_string"):
-        getattr(lib, sym).argtypes = getattr(ref, sym).argtypes
-        getattr(lib, sym).restype = getattr(ref, sym).restype
-    return lib
+    o1, t1, t2, o2 = run(True), run(False), run(False), run(True)
+    print(f"[timing] {what}: this build {t1 * 1e3:.1f} / {t2 * 1e3:.1f} us, the other build's "
+          f"{o1 * 1e3:.1f} / {o2 * 1e3:.1f} us (in turns)")
+    return (o1 + o2) / 2
 
 
 def other_turns(lib, sites, x, B) -> float:
@@ -2032,7 +2187,7 @@ def other_turns(lib, sites, x, B) -> float:
 
 
 T_START = time.perf_counter()
-OTHER_CSRC = None  # --other-csrc: a csrc directory whose K3 is timed beside this one
+OTHER_CSRC = None  # --other-csrc: a csrc directory whose kernels are timed beside these
 
 
 def main() -> None:
@@ -2040,8 +2195,9 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
-    ap.add_argument("--other-csrc", help="time K3 built from this csrc directory beside this "
-                    "one (e.g. the parent commit's)")
+    ap.add_argument("--other-csrc", help="time K3, K7, K2, K1 and K8 built from this csrc "
+                    "directory beside this build's, and hold K7 to its bits (e.g. the parent "
+                    "commit's)")
     OTHER_CSRC = ap.parse_args().other_csrc
     kind = phase_device()
     phase_build()
@@ -2201,6 +2357,11 @@ def main() -> None:
             # this K3 beside the other build's, timed in turns, where --other-csrc
             # named one
             row["parent_ms"] = ms.get(("parent", key[1]))
+        elif ("parent", key) in ms:  # the other build's, timed in turns
+            row["parent_ms"] = ms[("parent", key)]
+        if name == "two_site_step":  # at M=256 B=64 (K1 at I = 512 inside)
+            row["ms_m256_b64"] = ms["two_site_step_wide"]
+            row["parent_ms_m256_b64"] = ms.get(("parent", "two_site_step_wide"))
         if name == "polar_sketch_gram":
             row["shape"] = (f"I={I_big} J={J_big} q={M_LARGE}"
                             if key == ("polar_sketch_gram", M_LARGE)

@@ -10,6 +10,7 @@
 
 #include <cstdint>
 
+#include "pdl.cuh"
 #include "tile_gemm.cuh"
 
 namespace cg = cooperative_groups;
@@ -610,6 +611,7 @@ __global__ void __launch_bounds__(CNT, 1)
                          float* __restrict__ scratch, int I, int q, int n_power,
                          const __grid_constant__ Coeffs loop, const __grid_constant__ Coeffs fin,
                          float dead_tol) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K1 alone and K8
   extern __shared__ __align__(16) float sm[];
   Cx c;
   c.L = cluster_plan(I, q);
@@ -846,6 +848,7 @@ __global__ void __cluster_dims__(SCL, 1, 1) __launch_bounds__(NT)
                            float* __restrict__ scratch, int I, int q, int n_power,
                            const __grid_constant__ Coeffs loop,
                            const __grid_constant__ Coeffs fin, float dead_tol) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K1 alone and K8
   extern __shared__ __align__(16) float sm[];
   const int r = (int)cg::this_cluster().block_rank();
   const int cb = col_block(q);
@@ -867,7 +870,7 @@ long scratch_floats(int I, int q) {
 
 cudaError_t launch_cluster(const float* y, const float* g, const float* n2, float* q_out,
                            float* scratch, int I, int q, int n_power, const Coeffs* loop,
-                           const Coeffs* fin, float dead_tol, cudaStream_t st) {
+                           const Coeffs* fin, float dead_tol, cudaStream_t st, bool with_pdl) {
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(polar_cluster_kernel,
@@ -883,32 +886,36 @@ cudaError_t launch_cluster(const float* y, const float* g, const float* n2, floa
   cfg.blockDim = dim3(CNT);
   cfg.dynamicSmemBytes = (size_t)(cluster_plan(I, q).floats * (long)sizeof(float));
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = CL;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = with_pdl ? 2 : 1;
   return cudaLaunchKernelEx(&cfg, polar_cluster_kernel, y, g, n2, q_out, scratch, I, q, n_power,
                             *loop, *fin, dead_tol);
 }
 
 // One launch of the iteration on `stream`: y (I, q), the unscaled Gram g
 // (I, I) and n2 (1), or null to read tr g, give the isometric q_out (I, q).
+// with_pdl: the launch may start while its predecessor runs (pdl.cuh), as in
+// K7's chain; K1 alone and K8 launch without it.
 int launch(const float* y, const float* g, const float* n2, float* q_out, float* scratch, int I,
            int q, int n_power, const Coeffs* loop, const Coeffs* fin, float dead_tol,
-           cudaStream_t st) {
+           cudaStream_t st, bool with_pdl = false) {
   if (loop->n > MAX_PASSES || fin->n > MAX_PASSES || loop->n < 0 || fin->n < 0)
     return (int)cudaErrorInvalidValue;
   if (fits_cluster(I, q)) {
-    const cudaError_t err =
-        launch_cluster(y, g, n2, q_out, scratch, I, q, n_power, loop, fin, dead_tol, st);
+    const cudaError_t err = launch_cluster(y, g, n2, q_out, scratch, I, q, n_power, loop, fin,
+                                           dead_tol, st, with_pdl);
     return (int)(err != cudaSuccess ? err : cudaGetLastError());
   }
-  polar_streaming_kernel<<<SCL, NT, streaming_smem_floats() * sizeof(float), st>>>(
-      y, g, n2, q_out, scratch, I, q, n_power, *loop, *fin, dead_tol);
-  return (int)cudaGetLastError();
+  return (int)pdl::launch(polar_streaming_kernel, SCL, NT, streaming_smem_floats() * sizeof(float),
+                          st, with_pdl, y, g, n2, q_out, scratch, I, q, n_power, *loop, *fin,
+                          dead_tol);
 }
 
 }  // namespace polar

@@ -27,6 +27,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "pdl.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -135,6 +136,7 @@ __device__ __forceinline__ void transpose_tile(const float* src, float* dst, int
 // blocks 1 .. n_elem: loss_der (L, B), left_part (B, I) and its transpose,
 // right_part (B, DM); the rest: lab's 32 x 32 tiles, transposed.
 __global__ void __launch_bounds__(NR) prep_kernel(Args a) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K2 alone
   __shared__ float red[NR];
   __shared__ float buf[TT][TT + 1];
   const int tid = threadIdx.x, B = a.B;
@@ -179,6 +181,7 @@ __global__ void __launch_bounds__(NR) prep_kernel(Args a) {
 
 // bnew (L, I, DM) -> bnt (L, DM, I), after the update
 __global__ void __launch_bounds__(NR) transpose_kernel(Args a) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K2 alone
   __shared__ float buf[TT][TT + 1];
   transpose_tile(a.bnew, a.bnt, a.I, a.DM, blockIdx.x, buf);
 }
@@ -335,6 +338,7 @@ struct GradSmem {
 
 // One 64 x 64 tile (I-tile, DM-tile, label) of bt and db a block.
 __global__ void __launch_bounds__(NT) gradient_kernel(Args a) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K2 alone
   extern __shared__ float ld[];  // loss_der[o, :]
   __shared__ GradSmem sm;
   const int tid = threadIdx.x, blk = blockIdx.x;
@@ -396,6 +400,7 @@ __global__ void __launch_bounds__(NT) gradient_kernel(Args a) {
 // ---- B: eta from all partials (same order in every block), bnew and its partial sums
 
 __global__ void __launch_bounds__(NR) update_kernel(Args a) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K2 alone
   __shared__ float red[NR];
   const int tid = threadIdx.x;
   float sb = 0.f, sdb = 0.f;
@@ -523,6 +528,7 @@ __device__ __forceinline__ void product_job(const Args& a, ProductSmem& sm, int 
 }
 
 __global__ void __launch_bounds__(NT) products_kernel(Args a) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K2 alone
   __shared__ ProductSmem sm;
   const int tid = threadIdx.x;
   if (a.growth_cap > 0.f) {  // the growth cap's factor on bnew, as 256 threads summed it
@@ -550,6 +556,7 @@ __global__ void __launch_bounds__(NT) products_kernel(Args a) {
 // ---- D: fixed-order sums of the partials
 
 __global__ void __launch_bounds__(NR) finish_kernel(Args a) {
+  pdl::start();  // K7's chain (pdl.cuh); returns at once for K2 alone
   __shared__ float red[NR];
   const size_t II = (size_t)a.I * a.I, Iq = (size_t)a.I * a.q, LB = (size_t)a.L * a.B;
   const size_t e = (size_t)blockIdx.x * NR + threadIdx.x;
@@ -629,7 +636,9 @@ int transpose_tiles(int n, int rows, int cols) { return n * cdiv(rows, TT) * cdi
 
 // The six launches on `stream`; the inputs, outputs, shapes and options of
 // `a` are set, fill_counts(a) has run, and `scratch` holds scratch_floats().
-int launch(Args& a, float* scratch, cudaStream_t stream) {
+// with_pdl: each launch may start while its predecessor runs (pdl.cuh), as
+// in K7's chain; K2 alone launches without it.
+int launch(Args& a, float* scratch, cudaStream_t stream, bool with_pdl = false) {
   const int L = a.L, I = a.I, DM = a.DM, B = a.B, q = a.q;
   long n[NPARTS];
   scratch_parts(a, n);
@@ -641,33 +650,32 @@ int launch(Args& a, float* scratch, cudaStream_t stream) {
   }
   a.bnt = a.labt;
 
-  prep_kernel<<<1 + a.n_elem + transpose_tiles(L, I, a.Mk), NR, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = pdl::launch(prep_kernel, 1 + a.n_elem + transpose_tiles(L, I, a.Mk), NR, 0,
+                                stream, with_pdl, a);
   if (err != cudaSuccess) return (int)err;
   const size_t dyn = (size_t)B * sizeof(float);
   if (dyn + sizeof(GradSmem) > 48 * 1024) {
     if (dyn + sizeof(GradSmem) > 227 * 1024) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(gradient_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)dyn);
-    if (err != cudaSuccess) return (int)err;
+    static size_t opted = 0;  // the dynamic shared memory the kernel may take so far
+    if (dyn > opted) {
+      err = cudaFuncSetAttribute(gradient_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)dyn);
+      if (err != cudaSuccess) return (int)err;
+      opted = dyn;
+    }
   }
-  gradient_kernel<<<a.blocks_a, NT, dyn, stream>>>(a);
-  err = cudaGetLastError();
+  err = pdl::launch(gradient_kernel, a.blocks_a, NT, dyn, stream, with_pdl, a);
   if (err != cudaSuccess) return (int)err;
-  update_kernel<<<a.blocks_b, NR, 0, stream>>>(a);
-  err = cudaGetLastError();
+  err = pdl::launch(update_kernel, a.blocks_b, NR, 0, stream, with_pdl, a);
   if (err != cudaSuccess) return (int)err;
-  transpose_kernel<<<transpose_tiles(L, I, DM), NR, 0, stream>>>(a);
-  err = cudaGetLastError();
+  err = pdl::launch(transpose_kernel, transpose_tiles(L, I, DM), NR, 0, stream, with_pdl, a);
   if (err != cudaSuccess) return (int)err;
   const int jobs = (a.with_gram ? L * (a.nI * (a.nI + 1) / 2) : 0) + L * a.nI * a.nQ +
                    L * a.nB * a.nD;
-  products_kernel<<<jobs, NT, 0, stream>>>(a);
-  err = cudaGetLastError();
+  err = pdl::launch(products_kernel, jobs, NT, 0, stream, with_pdl, a);
   if (err != cudaSuccess) return (int)err;
   const long n_fin = std::max({a.with_gram ? (long)I * I : 0L, (long)I * q, (long)L * B});
-  finish_kernel<<<cdiv(n_fin, NR), NR, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)pdl::launch(finish_kernel, cdiv(n_fin, NR), NR, 0, stream, with_pdl, a);
 }
 
 }  // namespace presplit

@@ -21,7 +21,11 @@ sketch are formed, as the JAX package's kernel does.
 On CUDA tensors ``two_site_step`` launches the hand-written kernel
 ``csrc/two_site_step.cu`` (the counterpart of the JAX package's Pallas kernel
 ``two_site_step_pallas``); on CPU tensors it runs the plain version
-``two_site_step_reference``.
+``two_site_step_reference``. ``two_site_sweep`` runs the N - 1 steps of a
+whole fused sweep: on CUDA tensors as one call of the kernel's sweep entry,
+which issues every step's launches from C (the counterpart of the JAX
+package's scan over steps), on CPU tensors as a loop over
+``two_site_step_reference`` (``two_site_sweep_reference``).
 """
 
 from __future__ import annotations
@@ -132,6 +136,15 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.tnml_step_scratch_floats.argtypes = [i] * 4
         lib.tnml_step_scratch_floats.restype = ctypes.c_long
+        lib.tnml_fused_sweep.argtypes = (
+            [p] * 16  # 10 inputs, 5 outputs, workspace
+            + [i] * 7  # N, L, M, D, B, act, loss
+            + [ctypes.c_float, i, ctypes.c_float]  # T, renorm_envs, growth_cap
+            + [ctypes.POINTER(_Coeffs), ctypes.POINTER(_Coeffs), p]  # schedules, stream
+        )
+        lib.tnml_fused_sweep.restype = ctypes.c_int
+        lib.tnml_sweep_work_floats.argtypes = [i] * 4
+        lib.tnml_sweep_work_floats.restype = ctypes.c_long
         lib.tnml_cuda_error_string.argtypes = [i]
         lib.tnml_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -233,3 +246,132 @@ def two_site_step(
 
 
 two_site_step.launches = 0
+
+
+def two_site_sweep_reference(
+    lab, a2s, x, y1h, r_envs, lenv, f, lr, weight_dec=0.0,
+    act_fn: str = "linear", loss_fn: str = "MSE", T: float = 0.1,
+    renorm_envs: bool = False, growth_cap: float = 0.0, step=two_site_step_reference,
+):
+    """Plain version of ``two_site_sweep``: a loop of ``step`` over the N - 1
+    steps (``two_site_step`` there gives the per-step kernel's sweep). Returns
+    what ``two_site_sweep`` returns."""
+    L, I, M = lab.shape
+    a_lefts, metr_rows, mean_abs_f = [], [], []
+    for s in range(a2s.shape[0]):
+        a_left, lab_new, lenv, f_new, metr = step(
+            lab, a2s[s], x[s], x[s + 1], lenv, r_envs[s + 2], y1h, f, lr, weight_dec,
+            act_fn=act_fn, loss_fn=loss_fn, T=T, renorm_envs=renorm_envs,
+            growth_cap=growth_cap,
+        )
+        mean_abs_f.append(f.abs().mean())
+        # (L, M, D*M) -> (L, M*D, M): the same memory
+        lab, f = lab_new.reshape(L, I, M), f_new
+        a_lefts.append(a_left)
+        metr_rows.append(metr)
+    return (torch.stack(a_lefts), lab.reshape(L, M, I), f, torch.cat(metr_rows),
+            torch.stack(mean_abs_f))
+
+
+# a fused sweep's workspace, per device and shape: one sweep at a time on a
+# device's stream uses it
+_WORKSPACE: dict = {}
+
+
+def two_site_sweep(
+    lab: torch.Tensor,     # (L, M*D, M) label core, carry layout
+    a2s: torch.Tensor,     # (N-1, M, D, M) the right neighbours of the steps
+    x: torch.Tensor,       # (N, B, D) site inputs
+    y1h: torch.Tensor,     # (L, B) one-hot targets
+    r_envs: torch.Tensor,  # (N+1, B, M) stale right environments
+    lenv: torch.Tensor,    # (B, M) the boundary left environment
+    f: torch.Tensor,       # (L, B) the batch output before the sweep
+    lr,
+    weight_dec=0.0,
+    act_fn: str = "linear",
+    loss_fn: str = "MSE",
+    T: float = 0.1,
+    renorm_envs: bool = False,
+    growth_cap: float = 0.0,
+):
+    """A fused sweep's N - 1 steps: step s is ``two_site_step`` on
+    ``a2s[s]``, ``x[s]``, ``x[s + 1]`` and ``r_envs[s + 2]`` with the carried
+    label core, left environment and output. Returns ``(a_lefts (N-1, M*D,
+    M), lab_final (L, M, D*M), f_final (L, B), metrics (N-1, 4), mean_abs_f
+    (N-1,))``, ``mean_abs_f[s]`` the mean |f| of step s's carried output.
+
+    CPU tensors run ``two_site_sweep_reference``. CUDA tensors must be
+    float32 and contiguous, and run as one call of the kernel's sweep entry
+    with the same outputs, bit for bit, as a loop of ``two_site_step`` (but
+    for ``mean_abs_f``, which the kernel sums in its own order); the N - 1
+    steps add N - 1 to ``two_site_step.launches``.
+    """
+    tensors = (lab, a2s, x, y1h, r_envs, lenv, f)
+    kw = dict(act_fn=act_fn, loss_fn=loss_fn, T=T, renorm_envs=renorm_envs,
+              growth_cap=growth_cap)
+    if all(t.device.type == "cpu" for t in tensors):
+        return two_site_sweep_reference(lab, a2s, x, y1h, r_envs, lenv, f, lr, weight_dec, **kw)
+    dev = lab.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            "two_site_sweep takes CPU tensors or CUDA tensors on one device, got "
+            + ", ".join(str(t.device) for t in tensors)
+        )
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(
+            "the CUDA kernel takes float32, got " + ", ".join(str(t.dtype) for t in tensors)
+        )
+    if act_fn not in _ACT or loss_fn not in _LOSS:
+        raise ValueError(f"unknown act_fn {act_fn!r} or loss_fn {loss_fn!r}")
+    if lab.dim() != 3 or x.dim() != 3 or a2s.dim() != 4:
+        raise ValueError(f"lab must be (L, M*D, M), a2s (N-1, M, D, M) and x (N, B, D), got "
+                         f"{tuple(lab.shape)}, {tuple(a2s.shape)}, {tuple(x.shape)}")
+    L, I, M = lab.shape
+    N, B, D = x.shape
+    shapes_ok = (
+        I == M * D and a2s.shape == (N - 1, M, D, M) and r_envs.shape == (N + 1, B, M)
+        and lenv.shape == (B, M) and y1h.shape == (L, B) and f.shape == (L, B)
+    )
+    if not shapes_ok:
+        raise ValueError(
+            "two_site_sweep shapes do not fit together: lab "
+            f"{tuple(lab.shape)}, a2s {tuple(a2s.shape)}, x {tuple(x.shape)}, r_envs "
+            f"{tuple(r_envs.shape)}, lenv {tuple(lenv.shape)}, y1h {tuple(y1h.shape)}, "
+            f"f {tuple(f.shape)}"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("two_site_sweep takes contiguous tensors")
+    if min(L, M, D, B) == 0 or N < 2:
+        raise ValueError("two_site_sweep takes no empty dimension and at least one step")
+    f32 = dict(dtype=torch.float32, device=dev)
+    lr_t = torch.as_tensor(lr, **f32).reshape(1)
+    wd_t = torch.as_tensor(weight_dec, **f32).reshape(1)
+    om = _omega(L, D * M, M, dev).contiguous()
+    loop_block = _coeff_block(_pe_schedule(*_PE_LOOP))
+    final_block = _coeff_block(_pe_schedule(*_PE_FINAL))
+    a_lefts = torch.empty((N - 1, I, M), **f32)
+    lab_final = torch.empty((L, M, D * M), **f32)
+    f_final = torch.empty((L, B), **f32)
+    metrics = torch.empty((N - 1, 4), **f32)
+    mean_abs_f = torch.empty((N - 1,), **f32)
+    lib = _lib()
+    key = (dev, L, M, D, B)
+    if key not in _WORKSPACE:
+        _WORKSPACE[key] = torch.empty((lib.tnml_sweep_work_floats(L, M, D, B),), **f32)
+    with torch.cuda.device(dev):
+        err = lib.tnml_fused_sweep(
+            lab.data_ptr(), a2s.data_ptr(), x.data_ptr(), r_envs.data_ptr(), y1h.data_ptr(),
+            lenv.data_ptr(), f.data_ptr(), om.data_ptr(), lr_t.data_ptr(), wd_t.data_ptr(),
+            a_lefts.data_ptr(), lab_final.data_ptr(), f_final.data_ptr(), metrics.data_ptr(),
+            mean_abs_f.data_ptr(), _WORKSPACE[key].data_ptr(),
+            N, L, M, D, B, _ACT[act_fn], _LOSS[loss_fn], float(T), int(bool(renorm_envs)),
+            float(growth_cap), ctypes.byref(loop_block), ctypes.byref(final_block),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"two_site_sweep kernel failed: cudaError {err} "
+            f"({lib.tnml_cuda_error_string(err).decode()})"
+        )
+    two_site_step.launches += N - 1
+    return a_lefts, lab_final, f_final, metrics, mean_abs_f

@@ -27,7 +27,8 @@ split is kernel K6 from I = 128 rows (M >= 64 at D = 2); ``"hybrid"`` runs
 kernel K2 (``two_site_presplit``) and then K1 on every step, above
 ``M*D = 256`` too (the JAX package's cap there was a VMEM limit of the TPU);
 ``"fused"`` runs the whole step as kernel K7 (``two_site_step``), at every
-bond. The factored large-bond update (``train/factored_step.py``) takes a
+bond, all the steps of a sweep in one call (``two_site_sweep``). The
+factored large-bond update (``train/factored_step.py``) takes a
 step of the xla engine where the JAX package's rule sends it there
 (``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for a canonical
 fixed-rank polar split with no L2); it runs no kernel. ``dist_split`` is not
@@ -63,7 +64,7 @@ from tensornetworkforml_torch.ops.kernels.presplit_kernel import two_site_prespl
 from tensornetworkforml_torch.ops.kernels.step_kernel import (
     label_from_kernel_layout,
     label_to_kernel_layout,
-    two_site_step,
+    two_site_sweep,
 )
 from tensornetworkforml_torch.ops.svd import truncated_svd_split
 from tensornetworkforml_torch.train.factored_step import (
@@ -345,9 +346,10 @@ def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec
 
 
 def _fused_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T, cfg):
-    """The fused engine's sweep: K7 (``two_site_step``) per step. The carry
-    is float32 and the final output ``f`` stays float32, as in the JAX
-    package."""
+    """The fused engine's sweep: K7 (``two_site_step``) at each step, all
+    N - 1 steps in one call of ``two_site_sweep`` (on CPU tensors a loop of
+    K7's plain version). The carry is float32 and the final output ``f``
+    stays float32, as in the JAX package."""
     N, M, D, _ = sites.shape
     L = label_site.shape[2]
     dtype, dev = sites.dtype, sites.device
@@ -360,33 +362,23 @@ def _fused_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec,
         )
     lab, a2s, x, y1h, r32, l_env, f, lr32, wd32 = _f32_carry(
         sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec)
-
-    A_lefts, metr_rows, mean_abs_f = [], [], []
-    for step in range(N - 1):
-        a_left, lab_new, l_env, f_new, metr = two_site_step(
-            lab, a2s[step], x[step], x[step + 1], l_env, r32[step + 2], y1h, f, lr32, wd32,
-            act_fn=cfg.act_fn, loss_fn=cfg.loss_fn, T=T, renorm_envs=cfg.renorm_envs,
-            growth_cap=cfg.growth_cap,
-        )
-        mean_abs_f.append(f.abs().mean())
-        # (L, M, D*M) -> (L, M*D, M): the same memory
-        lab, f = lab_new.reshape(L, M * D, M), f_new
-        A_lefts.append(a_left.reshape(M, D, M).to(dtype))
-        metr_rows.append(metr)
-
-    metr = torch.cat(metr_rows).to(dtype)  # (N-1, 4)
+    a_lefts, lab, f, metr, mean_abs_f = two_site_sweep(
+        lab, a2s, x, y1h, r32, l_env, f, lr32, wd32, act_fn=cfg.act_fn, loss_fn=cfg.loss_fn,
+        T=T, renorm_envs=cfg.renorm_envs, growth_cap=cfg.growth_cap,
+    )
+    metr = metr.to(dtype)  # (N-1, 4)
     zeros = torch.zeros((N - 1,), dtype=dtype, device=dev)
     metrics = {
         "accuracy": metr[:, 0],
         "MAE": metr[:, 1],
         "sum_abs_B": metr[:, 2],
         "sum_abs_deltaB": metr[:, 3],
-        "mean_abs_f": torch.stack(mean_abs_f),
+        "mean_abs_f": mean_abs_f,
         "L2_loss": zeros,
         "sum_abs_L2_grad": zeros,
     }
-    label_final = label_from_kernel_layout(lab.reshape(L, M, D * M)).to(dtype)
-    return torch.stack(A_lefts), label_final, f, metrics
+    label_final = label_from_kernel_layout(lab).to(dtype)
+    return a_lefts.reshape(N - 1, M, D, M).to(dtype), label_final, f, metrics
 
 
 def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg):

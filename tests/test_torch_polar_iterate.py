@@ -12,7 +12,8 @@ in different summation orders. How far float32 rounding moves the subspace
 grows with the spread of the kept spectrum: over half a decade, with a gap of
 10 below it (the test matrices here), each float32 version stays within
 ~9e-6 of a float64 run of the same algorithm; over two decades both drift to
-~1e-4 of it, equally.
+~1e-4 of it, equally. ``hybrid_polar_split`` is held against a float64 run
+of the same algorithm (``F64_TOL``; its test says why).
 """
 
 import numpy as np
@@ -125,11 +126,32 @@ def test_nan_column_does_not_leak():
     assert not torch.isnan(q).any() and float(q.abs().max()) == 0.0  # NaN max: all dead
 
 
+# hybrid_polar_split against a float64 run of the same algorithm: each
+# package's float32 split to F64_TOL, the two packages to PAIR_TOL (below)
+F64_TOL = 2e-5
+PAIR_TOL = 2 * F64_TOL
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("dead_rows", [0, 16])
 def test_hybrid_polar_split_matches_jax(dtype, dead_rows, jps, jax_omega):
     """Same Omega -> same subspace: projector, reconstruction and isometry;
-    dead_tol follows the input dtype in both packages."""
+    dead_tol follows the input dtype in both packages, and both run the
+    split in float32 whatever the input dtype.
+
+    Each package's ``Q`` and ``Q R`` are held against a float64 run of the
+    same algorithm (the sketch and the Gram formed in float64 from the same
+    Omega, ``polar_iterate_reference`` in float64 at the same dead_tol) to
+    F64_TOL = 2e-5 on the projector and on ``Q R`` relative to max|B|.
+    Measured here (AMD EPYC, torch 2.13 CPU, jax 0.9) at dead_rows=0: the
+    port 6.4e-6 on the projector and 1.03e-5 on ``Q R``, the JAX package
+    4.6e-6 and 7.0e-6; over seeds 1-8 of the same draw up to 1.7e-5 and
+    1.8e-5; at dead_rows=16, 3e-7 for both. The ~9e-6 of the module
+    docstring is one machine's draw from that spread. The two packages are
+    then held to each other at PAIR_TOL = 2 F64_TOL, the triangle
+    inequality's bound from the two float64 holds (measured 7.3e-6 and
+    1.12e-5 at dead_rows=0: one float32 split against another at 1e-5 sat
+    inside the two packages' combined rounding)."""
     import jax.numpy as jnp
 
     I, J, rank = 32, 192, 16
@@ -137,9 +159,22 @@ def test_hybrid_polar_split_matches_jax(dtype, dead_rows, jps, jax_omega):
     jq, jr = jps.hybrid_polar_split(jnp.asarray(b), rank, interpret=True)
     tq, tr = tps.hybrid_polar_split(torch.as_tensor(b), rank)
     assert tq.dtype == getattr(torch, dtype) and tq.shape == (I, rank) and tr.shape == (rank, J)
-    assert _proj_err(tq, jq) < TOL
+    b64 = torch.as_tensor(b, dtype=torch.float64)
+    om = tsvd.rangefinder_omega(J, rank, torch.float64)
+    q64 = tps.polar_iterate_reference(b64 @ om, b64 @ b64.T,
+                                      dead_tol=1e-6 if dtype == "float32" else 1e-12)
+    qr64 = (q64 @ (q64.T @ b64)).numpy()
+
+    def rec_err(q, r):
+        qr = np.asarray(q, np.float64) @ np.asarray(r, np.float64)
+        return np.abs(qr - qr64).max() / np.abs(b).max()
+
+    for q, r in ((tq.double().numpy(), tr.double().numpy()), (jq, jr)):
+        assert _proj_err(q, q64) < F64_TOL
+        assert rec_err(q, r) < F64_TOL
+    assert _proj_err(tq, jq) < PAIR_TOL
     rec = np.abs((tq @ tr).double().numpy() - np.asarray(jq, np.float64) @ np.asarray(jr))
-    assert rec.max() / np.abs(b).max() < TOL
+    assert rec.max() / np.abs(b).max() < PAIR_TOL
     norms = torch.linalg.vector_norm(tq.double(), dim=0)
     live = norms > 0.5
     iso = tq.double()[:, live].T @ tq.double()[:, live] - torch.eye(int(live.sum()),

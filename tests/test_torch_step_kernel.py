@@ -336,6 +336,55 @@ def test_fused_engine_ignores_what_jax_ignores():
     assert torch.equal(base[0].sites, other[0].sites)
 
 
+def _per_step_fused_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec, T,
+                          cfg):
+    """The fused sweep as a loop of per-step K7 calls with the mean |f| taken
+    between steps, as the sweep ran before its steps were issued in one call."""
+    N, M, D, _ = sites.shape
+    L = label_site.shape[2]
+    dtype, dev = sites.dtype, sites.device
+    lab, a2s, x, y1h, r32, l_env, f, lr32, wd32 = tsw._f32_carry(
+        sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec)
+    A_lefts, metr_rows, mean_abs_f = [], [], []
+    for step in range(N - 1):
+        a_left, lab_new, l_env, f_new, metr = tsk.two_site_step(
+            lab, a2s[step], x[step], x[step + 1], l_env, r32[step + 2], y1h, f, lr32, wd32,
+            act_fn=cfg.act_fn, loss_fn=cfg.loss_fn, T=T, renorm_envs=cfg.renorm_envs,
+            growth_cap=cfg.growth_cap,
+        )
+        mean_abs_f.append(f.abs().mean())
+        lab, f = lab_new.reshape(L, M * D, M), f_new
+        A_lefts.append(a_left.reshape(M, D, M).to(dtype))
+        metr_rows.append(metr)
+    metr = torch.cat(metr_rows).to(dtype)
+    zeros = torch.zeros((N - 1,), dtype=dtype, device=dev)
+    metrics = {"accuracy": metr[:, 0], "MAE": metr[:, 1], "sum_abs_B": metr[:, 2],
+               "sum_abs_deltaB": metr[:, 3], "mean_abs_f": torch.stack(mean_abs_f),
+               "L2_loss": zeros, "sum_abs_L2_grad": zeros}
+    label_final = tsk.label_from_kernel_layout(lab.reshape(L, M, D * M)).to(dtype)
+    return torch.stack(A_lefts), label_final, f, metrics
+
+
+@pytest.mark.parametrize("kw", [{}, dict(growth_cap=1e-3, renorm_envs=True)])
+def test_fused_sweep_on_cpu_is_the_per_step_loop(kw, monkeypatch):
+    """On CPU tensors the fused sweep, issued through ``two_site_sweep``, gives
+    the per-step loop's outputs bit for bit (N=10, M=8): the new sites, the
+    label core, f_first, f_final and every metric series."""
+    _, t, x, y = _models(N=10, M=8, L=3, B=16, dtype="float32")
+    phi = psi_embed(torch.as_tensor(x, dtype=torch.float32))
+    y1h = torch.as_tensor(np.eye(3, dtype=np.float32)[y].T.copy())
+    cfg = tsw.SweepConfig(**_fused(**kw))
+    got = tsw.sweep_once(t, phi, y1h, 0.1, 1e-5, cfg)
+    monkeypatch.setattr(tsw, "_fused_sweep", _per_step_fused_sweep)
+    want = tsw.sweep_once(t, phi, y1h, 0.1, 1e-5, cfg)
+    assert torch.equal(got[0].sites, want[0].sites)
+    assert torch.equal(got[0].label_site, want[0].label_site)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[3].keys() == want[3].keys()
+    for k in want[3]:
+        assert got[3][k].dtype == want[3][k].dtype and torch.equal(got[3][k], want[3][k]), k
+
+
 # ---- the kernel on a card --------------------------------------------------
 
 # (L, M, B, options): the flagship step, ragged shapes, K1's streaming form at
@@ -411,7 +460,7 @@ def test_fused_sweep_on_card_matches_its_plain_version(cuda, monkeypatch):
     launches = tsk.two_site_step.launches
     kern = tsw.train_batch(mps, x, y, 0.05, 1e-5, cfg)
     assert tsk.two_site_step.launches == launches + N - 1
-    monkeypatch.setattr(tsw, "two_site_step", tsk.two_site_step_reference)
+    monkeypatch.setattr(tsw, "two_site_sweep", tsk.two_site_sweep_reference)
     plain = tsw.train_batch(mps, x, y, 0.05, 1e-5, cfg)
     fresh = psi_embed(torch.as_tensor(rng.random((B, N)), dtype=torch.float32, device=cuda))
     got, want = mps_forward(kern[0], fresh), mps_forward(plain[0], fresh)
@@ -431,3 +480,51 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)  # not contiguous
     with pytest.raises(ValueError):
         tsk.two_site_step(*bad, 0.1, 0.0)
+
+
+# (N, M, L, B, options): the flagship sweep and a ragged one, each with and
+# without the growth cap and renorm_envs
+SWEEP_CASES = [
+    (196, 128, 10, 256, {}),
+    (196, 128, 10, 256, dict(growth_cap=1e-3, renorm_envs=True)),
+    (24, 48, 10, 100, {}),
+    (24, 48, 10, 100, dict(growth_cap=1e-3, renorm_envs=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,M,L,B,kw", SWEEP_CASES)
+def test_sweep_entry_matches_the_per_step_loop_on_card(N, M, L, B, kw, cuda, monkeypatch):
+    """The sweep entry (all N - 1 steps issued from C) against the loop of
+    per-step K7 calls in the same build, on the inputs a fused sweep gives it:
+    every a_left, the final label core, f_final and the metrics bit for bit;
+    mean|f|, which the entry takes from K2's stats row (another summation
+    order than torch's mean), to 1e-5 relative. The sweep adds N - 1 to K7's
+    launch count."""
+    from tensornetworkforml_torch.models.mps import product_init
+
+    rng = np.random.default_rng(N + M)
+    x = torch.as_tensor(rng.random((B, N)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(rng.integers(0, L, B), device=cuda)
+    mps = product_init(torch.Generator().manual_seed(0), N=N, M=M, L=L, act_fn="linear",
+                       loss_fn="MSE", calibration_x=x.cpu().numpy())
+    seen = {}
+
+    def spy(*args, **kwargs):
+        seen["args"], seen["kwargs"] = args, kwargs
+        return tsk.two_site_sweep(*args, **kwargs)
+
+    monkeypatch.setattr(tsw, "two_site_sweep", spy)
+    launches = tsk.two_site_step.launches
+    tsw.train_batch(mps, x, y, 0.05, 1e-5, tsw.SweepConfig(**_fused(**kw)))
+    assert tsk.two_site_step.launches == launches + N - 1
+    args, kwargs = seen["args"], seen["kwargs"]
+    launches = tsk.two_site_step.launches
+    got = tsk.two_site_sweep(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert tsk.two_site_step.launches == launches + N - 1
+    want = tsk.two_site_sweep_reference(*args, step=tsk.two_site_step, **kwargs)
+    for name, g, w in zip(("a_lefts", "lab_final", "f_final", "metrics"), got, want):
+        assert g.shape == w.shape and torch.equal(g, w), name
+    assert bool(torch.isfinite(got[0]).all())
+    assert _rel(got[4], want[4]) < 1e-5

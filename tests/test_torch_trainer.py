@@ -9,15 +9,19 @@
   rounding (~5e-7 in the first sweep's MAE series) and grows 2-5x per
   sweep (measured at lr 0.05: 3e-5 after two sweeps, 1e-4 and 1e-3 in the
   MAE series and the function after four). So one epoch of two sweeps is
-  held to 2e-4, and ``train_model``'s four sweeps to 2e-3 on the function
-  and 5e-4 on the MAE series. The per-step accuracy series may differ by one
-  sample where a score sits at a near-tie: 1/B.
+  held to 2e-4 on the MAE series, and ``train_model``'s four sweeps to 2e-3
+  on the function and 5e-4 on the MAE series. The per-step accuracy series
+  may differ by one sample where a score sits at a near-tie: 1/B. The
+  function after one float32 epoch is held against a float64 run of the
+  same epoch instead (``EPOCH_F64_TOL``; ``test_fused_epoch_matches_jax``
+  says why).
 """
 
 import ast
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ from tensornetworkforml_torch.data import loader as tld
 from tensornetworkforml_torch.models.mps import mps_forward
 from tensornetworkforml_torch.ops import svd as tsvd
 from tensornetworkforml_torch.ops.embedding import psi_embed
+from tensornetworkforml_torch.ops.kernels import polar_split as tps
 from tensornetworkforml_torch.train import epoch as tep
 from tensornetworkforml_torch.train import trainer as ttr
 from tensornetworkforml_torch.train.sweep import SweepConfig
@@ -36,6 +41,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-4  # polar, one epoch of two sweeps
 TOL_4 = (2e-3, 5e-4)  # polar, four sweeps: the function, the MAE series
 TOL64 = 1e-8  # svd in float64
+EPOCH_F64_TOL = 2e-3  # polar: a float32 epoch's function against a float64 run of it
 N, M, L = 10, 8, 3
 
 
@@ -86,6 +92,42 @@ def _fresh_close(tm, jm, tol=TOL, seed=11):
     want = np.asarray(jfw(jm, jpsi(jnp.asarray(x))), np.float64)
     got = mps_forward(tm, psi_embed(torch.as_tensor(x))).double().numpy()
     assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+
+
+def _fresh_x(seed=11):
+    return np.random.default_rng(seed).random((8, N))
+
+
+def _fresh_f(tm, dtype=torch.float32):
+    x = torch.as_tensor(_fresh_x(), dtype=dtype)
+    return mps_forward(tm, psi_embed(x)).double().numpy()
+
+
+def _fresh_jax_f(jm):
+    import jax.numpy as jnp
+
+    from tensornetworkforml_tpu.models.mps import mps_forward as jfw
+    from tensornetworkforml_tpu.ops.embedding import psi_embed as jpsi
+
+    return np.asarray(jfw(jm, jpsi(jnp.asarray(_fresh_x().astype(np.float32)))), np.float64)
+
+
+def _split_float64(bmat, rank):
+    """hybrid_polar_split run in float64: the sketch (the same Omega), the
+    Gram, the plain subspace iteration at the float32 dead_tol, and R."""
+    b = bmat.double()
+    om = tsvd.rangefinder_omega(b.shape[1], min(rank, b.shape[0]), torch.float64)
+    q = tps.polar_iterate_reference(b @ om, b @ b.T, dead_tol=1e-6)
+    return tps._canonical_factors(q, rank, b, torch.float64)
+
+
+def _float64_epoch(t, xe, ye):
+    """The port's polar fused epoch on a float64 copy of model and batches,
+    with the polar split in float64 too."""
+    t64 = t.replace(sites=t.sites.double(), label_site=t.label_site.double())
+    with mock.patch.object(tps, "hybrid_polar_split", _split_float64):
+        return tep.fused_epoch(t64, xe.astype(np.float64), ye, 0.05, 1e-4,
+                               SweepConfig(**_cfg("polar")))[0]
 
 
 def _loaders(pkg, x, y, B=16, seed=3, n_batches=4):
@@ -157,7 +199,25 @@ def test_fused_epoch_matches_jax(split, dtype, n_batches, tol, jax_omega):
     for k, atol in (("accuracy", 1 / 16 + 1e-6 if split == "polar" else tol), ("MAE", tol)):
         assert tmet[k].shape == np.asarray(jmet[k]).shape == (n_batches, N - 1)
         np.testing.assert_allclose(tmet[k].numpy(), np.asarray(jmet[k]), rtol=0, atol=atol)
-    _fresh_close(tm, jm, tol)
+    if split != "polar":
+        _fresh_close(tm, jm, tol)
+        return
+    # Both packages run the polar split in float32 whatever the model's dtype.
+    # At the first step of each sweep the two-site matrix is rank-deficient:
+    # float64 keeps 7 and 5 live columns there, float32 (both packages) 8,
+    # the extra ones rounding directions whose exact norm lies below
+    # dead_tol = 1e-6 of the largest. So two float32 runs of this epoch part
+    # by rounding: the port's against itself with the label core x (1 + 3e-7)
+    # by 1.6e-4 of max|f| on this draw (6e-5 to 1.6e-3 over data seeds 0-5),
+    # port against JAX by 3.5e-4 (5e-5 to 2.5e-3), while the float64 run moves
+    # by 1.5e-7 under the same rescale. Each package's function is held
+    # against that float64 run instead: measured 8.4e-4 (port) and 4.8e-4
+    # (JAX) of max|f| on this draw, 7e-5 to 1.8e-3 over seeds 0-5; both here
+    # and on the card (chip_smoke.py) the float64 run is the stable reference.
+    want = _fresh_f(_float64_epoch(_port(j), xe, ye), torch.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    for got in (_fresh_f(tm), _fresh_jax_f(jm)):
+        assert np.abs(got - want).max() <= EPOCH_F64_TOL * scale
 
 
 def test_fused_epoch_checks_its_arguments():
