@@ -10,7 +10,8 @@ With --other-csrc, K3, K7, K2, K1 and K8 built from another csrc directory
 (e.g. the parent commit's, from `git archive HEAD tensornetworkforml_torch/csrc`)
 are timed beside this build's in turns, and their rows of the kernels line
 give the other build's time as parent_ms; K7 is also held bit for bit against
-the other build's K7 at its four shapes.
+the other build's K7 at its four shapes, and K8 against the other build's K8
+at its three.
 
 The model is the flagship: 10-class pooled MNIST, N=196, M=128, D=2, L=10,
 linear/MSE, random weights from a seed, synthetic pooled images; the large
@@ -59,9 +60,12 @@ phase trains the same model at M=512. Phases:
                 two-site matrix, held against hybrid_polar_split (and, in
                 phase 11, once on the M=512 step's two-site matrix);
   9. all-in-one split -- polar_split (K8) against its plain version on the
-                flagship step's two-site matrix and at a J that needs padding
-                with n_power=2, one call on the flagship matrix (1 launch),
-                held against polar_split_two_stage and hybrid_polar_split;
+                flagship step's two-site matrix, at a J that needs padding
+                with n_power=2 and on the M=256 step's (I=512, J=5120,
+                q=256), bit for bit against polar_split_two_stage at the two
+                step shapes (J needs no pad there); one call on each step's
+                matrix (1 launch each), held against polar_split_two_stage
+                and hybrid_polar_split;
  10. rangefinder -- the flagship with svd_method="rangefinder" (bench.py's
                 high_m_rangefinder): K6 against its plain version on the
                 captured step's two-site matrix, a ragged shape, I=512 (the
@@ -88,6 +92,7 @@ phase trains the same model at M=512. Phases:
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
                 yardstick call; K5 at the flagship and at M=512; K1 and K2
                 at the flagship and on the M=256 step's inputs, K2 also by
+                launch from a profile; K8 at both step shapes, also by
                 launch from a profile), ms per sweep
                 on the three engines, on the rangefinder split (its profile
                 splitting K6 into its four launches), on both M=512 routes and on the hybrid and
@@ -98,7 +103,7 @@ phase trains the same model at M=512. Phases:
                 the rest, the idle share), and for
                 context torch.linalg.qr on K6's panel, the hybrid step (K2,
                 K1 and two products) beside K7 and polar_split_two_stage
-                beside K8.
+                beside K8 at both shapes.
 
 Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
@@ -1140,35 +1145,71 @@ def compare_polar_split(name, bmat, rank, n_power) -> float:
     return max(float((q - qp).abs().max()), float((r - rp).abs().max()))
 
 
-def phase_polar_split_kernels(captured) -> float:
+def k8_cases(captured, wide_cap) -> list:
+    """K8's checked shapes: (name, bmat, rank, n_power, key in the kernels line)."""
     gen = torch.Generator().manual_seed(SEED + 9)
-    return max(compare_polar_split(f"flagship step {CAPTURE_STEP}", captured["bmat"], M, 1),
-               compare_polar_split("padded", gapped(96, 300, 48, gen).float().to(DEVICE), 48, 2))
+    return [(f"flagship step {CAPTURE_STEP}", captured["bmat"], M, 1, "polar_split"),
+            ("padded", gapped(96, 300, 48, gen).float().to(DEVICE), 48, 2, None),
+            (f"M={M_WIDE} step {CAPTURE_STEP}", wide_cap["bmat"], M_WIDE, 1,
+             ("polar_split", M_WIDE))]
 
 
-def phase_polar_split(captured) -> dict:
+def phase_polar_split_kernels(captured, wide_cap) -> dict:
+    """K8 against its plain version at its three shapes, and bit for bit
+    against polar_split_two_stage where J needs no pad for Omega (the same
+    Omega, the same sums in the same order) and, with --other-csrc, against
+    the other build's K8 at every shape."""
+    errs = {}
+    for name, bmat, rank, n_power, key in k8_cases(captured, wide_cap):
+        err = compare_polar_split(name, bmat, rank, n_power)
+        if key is not None:
+            errs[key] = err
+        q, r = polar_split.polar_split(bmat, rank, n_power=n_power)
+        held = []
+        if polar_split._tile_j(*bmat.shape)[2] == 0 and n_power == 1:
+            held.append(("polar_split_two_stage", polar_split.polar_split_two_stage(bmat, rank)))
+        if "polar_iterate" in OTHER:
+            with using_other("polar_iterate"):
+                held.append((f"the other build's K8 ({OTHER_CSRC})",
+                             polar_split.polar_split(bmat, rank, n_power=n_power)))
+        for what, (qo, ro) in held:
+            if not (same_bits(q, qo) and same_bits(r, ro)):
+                fail(f"K8 {name}: Q and R are not {what}'s bit for bit")
+        if held:
+            print(f"[kernel] polar_split {name}: Q and R bit for bit "
+                  + " and ".join(what for what, _ in held) + "'s")
+    return errs
+
+
+def phase_polar_split(captured, wide_cap) -> dict:
     """polar_split (K8), an entry point no sweep reaches, once on the flagship
-    step's two-site matrix, held against polar_split_two_stage and
+    step's two-site matrix and once on the M=256 step's, each call its own
+    window of launch counts, held against polar_split_two_stage and
     hybrid_polar_split by the projector (the same Omega: J needs no pad)."""
-    bmat = captured["bmat"]
-    reset_counts()
-    q, r = polar_split.polar_split(bmat, M)
-    torch.cuda.synchronize()
-    launched = counts()
-    if launched["polar_split"] != 1 or any(v for k, v in launched.items() if k != "polar_split"):
-        fail(f"polar_split launched {launched} (want K8 once, nothing else)")
-    parts = []
-    for what, split in (("polar_split_two_stage", polar_split.polar_split_two_stage),
-                        ("hybrid_polar_split", polar_split.hybrid_polar_split)):
-        qo, ro = split(bmat, M)
-        proj, rec, iso = split_agreement(bmat, q, r, qo, ro)
-        if proj > K1_PROJ_TOL:
-            fail(f"polar_split and {what} differ: |QQt-Q'Q't| = {proj:.3g}")
-        parts.append(f"vs {what} |QQt-Q'Q't|={proj:.3g} |QR-Q'R'|/max|B|={rec:.3g}")
-    print(f"[all-in-one] polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={M} (flagship step "
-          f"{CAPTURE_STEP}): K8 launches 1; " + "; ".join(parts) + f" (tol {K1_PROJ_TOL:g} on "
-          f"the projector); isometry {iso:.3g} ok")
-    return launched
+    launches = {}
+    for name, bmat, rank, _, key in k8_cases(captured, wide_cap):
+        if key is None:
+            continue
+        reset_counts()
+        q, r = polar_split.polar_split(bmat, rank)
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched["polar_split"] != 1 or any(v for k, v in launched.items()
+                                               if k != "polar_split"):
+            fail(f"polar_split at {name} launched {launched} (want K8 once, nothing else)")
+        launches[key] = launched["polar_split"]
+        parts = []
+        for what, split in (("polar_split_two_stage", polar_split.polar_split_two_stage),
+                            ("hybrid_polar_split", polar_split.hybrid_polar_split)):
+            qo, ro = split(bmat, rank)
+            proj, rec, iso = split_agreement(bmat, q, r, qo, ro)
+            if proj > K1_PROJ_TOL:
+                fail(f"polar_split and {what} differ at {name}: |QQt-Q'Q't| = {proj:.3g}")
+            parts.append(f"vs {what} |QQt-Q'Q't|={proj:.3g} |QR-Q'R'|/max|B|={rec:.3g}")
+        print(f"[all-in-one] polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={rank} ({name}): "
+              f"K8 launches 1; " + "; ".join(parts) + f" (tol {K1_PROJ_TOL:g} on the "
+              f"projector); isometry {iso:.3g} ok")
+    return launches
 
 
 # ---- phase 10: the rangefinder path (K6) -----------------------------------------
@@ -1838,6 +1879,37 @@ RF_PROFILE = {"K6 tile pass": ("sketch_tile_kernel",), "K6 scale": ("rf_finish_k
               "K6 cluster": ("rf_cluster_kernel",), "K6 R": ("rf_r_kernel",)}
 
 
+# K8's launches in chain order, by the parts of their names; the call's other
+# device work (R = Q^T B) comes after them
+K8_LAUNCHES = (("tile", "tc_sketch_gram_kernel"), ("sum", "split_sum_kernel"),
+               ("K1", "polar_cluster_kernel"), ("K1", "polar_streaming_kernel"))
+
+
+def k8_by_launch(what, bmat, rank, reps: int = 20) -> None:
+    """K8's device time by launch (torch.profiler's timeline over ``reps``
+    calls). Its sum and K1's launch are programmatic dependent launches, so
+    each one's profiled time counts its wait for its predecessor; the time
+    each adds to the device's busy time (the union of the chain's intervals
+    up to it, less the union before it) is printed beside it."""
+    prof = device_time_table(lambda: [polar_split.polar_split(bmat, rank) for _ in range(reps)],
+                             timeline=True)
+
+    def kind(name):
+        return next((k for k, p in K8_LAUNCHES if f"::{p}(" in name or f"::{p}<" in name),
+                    "other")
+
+    spans = [(kind(n), a, b) for n, a, b in prof["intervals"]]
+    order = ("tile", "sum", "K1", "other")
+    own, added, before = {}, {}, 0.0
+    for i, k in enumerate(order):
+        own[k] = sum(b - a for kk, a, b in spans if kk == k) / reps
+        upto = union_ms([(a, b) for kk, a, b in spans if kk in order[:i + 1]]) * 1e3 / reps
+        added[k], before = upto - before, upto
+    print(f"[profile] K8 by launch at {what}, us a call (profiled / added to the busy time): "
+          + "; ".join(f"{k} {own[k]:.1f} / {added[k]:.1f}" for k in order)
+          + f"; busy {before:.1f} us a call (other: R = Q^T B)")
+
+
 def k2_by_launch(what, args, kwargs, reps: int = 20) -> None:
     """K2's device time by launch (torch.profiler over ``reps`` calls)."""
     by = device_time_table(lambda: [presplit_kernel.two_site_presplit(*args, **kwargs)
@@ -2019,6 +2091,19 @@ def phase_wide_timing(wide, xb, yb, cap) -> dict:
     k1 = turns(f"polar_iterate {shape} (M={M_WIDE} step {CAPTURE_STEP})",
                lambda: polar_split.polar_iterate(y0, g, n2),
                lambda: polar_split.polar_iterate_reference(y0, g, n2), reps=10)
+    bmat = cap["bmat"]
+    k8_what = f"polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={M_WIDE} (M={M_WIDE} step " \
+              f"{CAPTURE_STEP})"
+    out = {("polar_split", M_WIDE): turns(
+        k8_what, lambda: polar_split.polar_split(bmat, M_WIDE),
+        lambda: polar_split.polar_split_reference(bmat, M_WIDE), reps=10)}
+    k8_by_launch(f"M={M_WIDE} step {CAPTURE_STEP}", bmat, M_WIDE)
+    if "polar_iterate" in OTHER:
+        out[("parent", ("polar_split", M_WIDE))] = other_build_turns(
+            k8_what, "polar_iterate", lambda: polar_split.polar_split(bmat, M_WIDE), 10)
+    two = cuda_ms(lambda: polar_split.polar_split_two_stage(bmat, M_WIDE), 10)
+    print(f"[context] polar_split_two_stage (K5, K1 and R) at M={M_WIDE} {two * 1e3:.1f} us "
+          f"beside K8 (context, not a yardstick)")
     sweep_ms = {}
     for engine in ("xla", "hybrid", "hybrid", "xla"):
         torch.cuda.synchronize()
@@ -2034,7 +2119,7 @@ def phase_wide_timing(wide, xb, yb, cap) -> dict:
                       device_time_table(lambda: one_sweep(wide, xb, yb, "hybrid")),
                       wide_ms["hybrid"])
     return {"wide_sweep": wide_ms, ("polar_iterate", M_WIDE): k1,
-            ("two_site_presplit", M_WIDE): k2}
+            ("two_site_presplit", M_WIDE): k2, **out}
 
 
 def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
@@ -2071,6 +2156,7 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
         f"polar_split I={bmat.shape[0]} J={bmat.shape[1]} q={M}",
         lambda: polar_split.polar_split(bmat, M),
         lambda: polar_split.polar_split_reference(bmat, M), reps=10)
+    k8_by_launch(f"flagship step {CAPTURE_STEP}", bmat, M)
     wide_name, wide_args, wide_kw = step_cases(captured)[3]
     ms["two_site_step_wide"] = cuda_ms(lambda: step_kernel.two_site_step(*wide_args, **wide_kw),
                                        10)
@@ -2230,8 +2316,8 @@ def main() -> None:
     launches["two_site_step"] = phase_fused(mps, x_tr, y_tr, x_fresh)["two_site_step"]
     launches["polar_sketch_gram"] = phase_two_stage(
         captured["bmat"], M, f"flagship step {CAPTURE_STEP}")["polar_sketch_gram"]
-    errs["polar_split"] = phase_polar_split_kernels(captured)
-    launches["polar_split"] = phase_polar_split(captured)["polar_split"]
+    errs.update(phase_polar_split_kernels(captured, wide_cap))
+    launches.update(phase_polar_split(captured, wide_cap))
 
     errs["rangefinder_split"] = phase_rangefinder_kernels(captured)
     rf_trained, launches["rangefinder_split"], rf_batch_s = phase_rangefinder_train(mps)
@@ -2273,6 +2359,7 @@ def main() -> None:
         "rangefinder_split": rf_work(M * D, L * D * M, min(M + 8, M * D), M),
         "two_site_step": step_work(L, M, BATCH, pe),
         "polar_split": polar_split_work(M * D, L * D * M, M, pe),
+        ("polar_split", M_WIDE): polar_split_work(M_WIDE * D, L * D * M_WIDE, M_WIDE, pe),
     }
     work[("polar_sketch_gram", M_LARGE)] = sketch_work(I_big, J_big, M_LARGE, True)
     work[("polar_iterate", M_WIDE)] = polar_work(M_WIDE * D, M_WIDE, *pe)
@@ -2282,11 +2369,13 @@ def main() -> None:
     # tensor part three times over at the TF32 rate; K8's is its K5 stage's so
     # and K1's float32 iteration; the float32 bound is printed beside it
     tensor_core = ("gramfree_sketch", "gramfree_gmul", "polar_sketch_gram",
-                   ("polar_sketch_gram", M_LARGE), "polar_split")
+                   ("polar_sketch_gram", M_LARGE), "polar_split", ("polar_split", M_WIDE))
+    k8_shapes = {"polar_split": (M * D, L * D * M, M),
+                 ("polar_split", M_WIDE): (M_WIDE * D, L * D * M_WIDE, M_WIDE)}
 
     def bound(name):
-        if name == "polar_split":
-            return k8_bound_ms(M * D, L * D * M, M, pe)
+        if name in k8_shapes:
+            return k8_bound_ms(*k8_shapes[name], pe)
         return (tc_bound_ms if name in tensor_core else bound_ms)(*work[name])
 
     for name, (flops, nbytes) in work.items():
@@ -2334,6 +2423,8 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/step_kernel.py:85", "two_site_step"),
         ("polar_split", "polar_iterate.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:192", "polar_split"),
+        ("polar_split", "polar_iterate.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:192", ("polar_split", M_WIDE)),
     ):
         b_ms, b_by = bound(key if key in work else name)
         row = {
@@ -2369,6 +2460,8 @@ def main() -> None:
         if name == "two_site_presplit":
             m = M_WIDE if key == ("two_site_presplit", M_WIDE) else M
             row["shape"] = f"L={L} I={m * D} DM={D * m} Mk={m} B={BATCH} q={m}"
+        if name == "polar_split":
+            row["shape"] = "I={} J={} q={}".format(*k8_shapes[key])
         if name == "polar_iterate":
             m = M_WIDE if key == ("polar_iterate", M_WIDE) else M
             row["shape"] = f"I={m * D} q={m}"

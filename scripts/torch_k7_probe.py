@@ -274,7 +274,7 @@ VARIANTS = {
     "no PDL": [("pdl.cuh", "cfg.numAttrs = pdl ? 1 : 0;", "cfg.numAttrs = 0;"),
                ("polar_iterate.cuh", "cfg.numAttrs = with_pdl ? 2 : 1;", "cfg.numAttrs = 1;")],
     "16-byte parts": [
-        ("two_site_step.cu", "constexpr long PART = 64;", "constexpr long PART = 4;")],
+        ("layout.cuh", "constexpr long PART = 64;", "constexpr long PART = 4;")],
 }
 
 

@@ -1,6 +1,7 @@
 // Programmatic dependent launch (PDL) for a chain of kernels on one stream,
-// as K7 (two_site_step.cu) runs its step: K2's six launches, K1's, and its
-// own two.
+// as K7 (two_site_step.cu) runs its step (K2's six launches, K1's, and its
+// own two) and K8 (polar_iterate.cu) its split (K5's tile launch and sum,
+// then K1's).
 //
 // A kernel launched with launch(..., pdl = true) may start while its
 // predecessor on the stream still runs: as soon as every block of the
@@ -15,8 +16,8 @@
 // kernel n + 1 then finishes after kernel n, so kernel n + 2, waiting for
 // n + 1, also waits for n, and the first kernel of the next step waits for
 // the last one of this step before it overwrites the scratch they share.
-// Launched without the attribute (K1 alone, K2 alone, K8), both instructions
-// return at once: nothing is waited for and no dependent reacts.
+// Launched without the attribute (K1, K2, K4a, K4b and K5 alone), both
+// instructions return at once: nothing is waited for and no dependent reacts.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -75,12 +75,19 @@
 // replaces the Pallas kernel _polar_split_kernel behind polar_split_pallas in
 // the same file. From the two-site matrix B (I, J) and the sketch Omega (J, q)
 // it computes y = B Omega, G = B B^T and n2 = |B|_F^2 (accumulated, not tr G),
-// then the iteration above with that n2: one C entry, two stages on one stream
-// with no host work between. The first stage is K5's call (tc_gemm.cuh:
-// y and G's upper triangle of 128 x 128 tiles, mirrored, on the tensor cores
-// in 3xTF32, then the fixed-order sum), the second K1's launch. It sits here, not in a source of its own,
-// because its device code is exactly K5's and K1's, and a library of its own
-// would compile K1's two kernels once more. The Pallas kernel's
+// then the iteration above with that n2: one C entry, a chain of three
+// launches on one stream with no host work between. The first stage is K5's
+// call (tc_gemm.cuh: y and G's upper triangle of 128 x 128 tiles, mirrored,
+// on the tensor cores in 3xTF32, then the fixed-order sum of the k split's
+// partials), the second K1's launch. The sum and K1's launch are programmatic
+// dependent launches (pdl.cuh), as in K7: each becomes resident while its
+// predecessor runs and waits in its first statement for it to complete. Every
+// part of the scratch starts on a 256-byte boundary (layout.cuh), so K1's
+// TMA copies meet its mirrors as they do when K1 runs alone. The order of
+// every sum is K5's and K1's own, so Q is polar_split_two_stage's bit for
+// bit wherever both draw the same Omega. It sits here, not in a source of
+// its own, because its device code is exactly K5's and K1's, and a library of
+// its own would compile K1's two kernels once more. The Pallas kernel's
 // J-tiling, its 2 MB block cap and its 128-column padding were Mosaic
 // workarounds: only the padded length at which the caller draws Omega is
 // semantics, and the caller hands over its first J rows. R = Q^T B is a plain
@@ -90,15 +97,15 @@
 
 #include <cuda_runtime.h>
 
+#include "layout.cuh"
 #include "polar_iterate.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
 
-long round4(long n) { return (n + 3) / 4 * 4; }
-
-// The scratch of one K8 split, in floats, each part 16-byte aligned:
-// y (I, q), G (I, I), n2, K5's scratch, the iteration's scratch.
+// The scratch of one K8 split, offsets in floats, each part on a 256-byte
+// boundary (layout.cuh): y (I, q), G (I, I), n2, K5's scratch (its own parts
+// aligned too), the iteration's scratch.
 struct SplitLayout {
   long y, g, n2, part, pol, floats;
 };
@@ -106,11 +113,11 @@ struct SplitLayout {
 SplitLayout split_layout(int I, int J, int q) {
   SplitLayout s;
   long o = 0;
-  s.y = o; o += round4((long)I * q);
-  s.g = o; o += round4((long)I * I);
-  s.n2 = o; o += 4;
-  s.part = o; o += round4(tc::sketch_gram_scratch_floats(I, J, q));
-  s.pol = o; o += polar::scratch_floats(I, q);
+  s.y = o; o += part((long)I * q);
+  s.g = o; o += part((long)I * I);
+  s.n2 = o; o += part(1);
+  s.part = o; o += part(tc::sketch_gram_scratch_floats(I, J, q));
+  s.pol = o; o += part(polar::scratch_floats(I, q));
   s.floats = o;
   return s;
 }
@@ -136,16 +143,35 @@ long tnml_polar_split_scratch_floats(int I, int J, int q) {
   return split_layout(I, J, q).floats;
 }
 
+// K8's scratch layout at (I, J, q), offsets in floats into `out` (8 slots): y,
+// G, n2, K5's partial sums of squares, its partial tiles of y and of G, K1's
+// scratch, and the total; returns the number of slots written
+int tnml_polar_split_layout(int I, int J, int q, long* out) {
+  const SplitLayout s = split_layout(I, J, q);
+  const tc::SketchGramLayout k5 = tc::sketch_gram_layout(I, J, q);
+  const long slots[8] = {s.y, s.g, s.n2, s.part + k5.n2p, s.part + k5.yp, s.part + k5.gp,
+                         s.pol, s.floats};
+  for (int i = 0; i < 8; ++i) out[i] = slots[i];
+  return 8;
+}
+
 int tnml_polar_split(const float* b, const float* om, float* q_out, float* scratch, int I, int J,
                      int q, int n_power, const Coeffs* loop, const Coeffs* fin, float dead_tol,
                      void* stream_ptr) {
   cudaStream_t st = (cudaStream_t)stream_ptr;
   const SplitLayout s = split_layout(I, J, q);
   float *y = scratch + s.y, *g = scratch + s.g, *n2 = scratch + s.n2;
-  const int err = tc::sketch_gram(b, om, y, g, n2, scratch + s.part, I, J, q, st);
+  // The chain: the tile launch, the fixed-order sum, K1's launch; the last two
+  // are programmatic dependent launches of their predecessors (pdl.cuh). The
+  // first is not: its predecessor on the stream is PyTorch's work (the
+  // caller's, or the last split's R = Q^T B), whose kernels do not trigger
+  // their dependents early, so the attribute could start it no sooner (with
+  // it, the call read within noise on an H100); without it the stream's order
+  // alone keeps it from writing the scratch before all queued work is done.
+  const int err = tc::sketch_gram(b, om, y, g, n2, scratch + s.part, I, J, q, st, true);
   if (err != 0) return err;
   return polar::launch(y, g, n2, q_out, scratch + s.pol, I, q, n_power, loop, fin, dead_tol,
-                       st);
+                       st, true);
 }
 
 const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

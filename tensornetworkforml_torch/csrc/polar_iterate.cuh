@@ -611,7 +611,7 @@ __global__ void __launch_bounds__(CNT, 1)
                          float* __restrict__ scratch, int I, int q, int n_power,
                          const __grid_constant__ Coeffs loop, const __grid_constant__ Coeffs fin,
                          float dead_tol) {
-  pdl::start();  // K7's chain (pdl.cuh); returns at once for K1 alone and K8
+  pdl::start();  // K7's and K8's chains (pdl.cuh); returns at once for K1 alone
   extern __shared__ __align__(16) float sm[];
   Cx c;
   c.L = cluster_plan(I, q);
@@ -848,7 +848,7 @@ __global__ void __cluster_dims__(SCL, 1, 1) __launch_bounds__(NT)
                            float* __restrict__ scratch, int I, int q, int n_power,
                            const __grid_constant__ Coeffs loop,
                            const __grid_constant__ Coeffs fin, float dead_tol) {
-  pdl::start();  // K7's chain (pdl.cuh); returns at once for K1 alone and K8
+  pdl::start();  // K7's and K8's chains (pdl.cuh); returns at once for K1 alone
   extern __shared__ __align__(16) float sm[];
   const int r = (int)cg::this_cluster().block_rank();
   const int cb = col_block(q);
@@ -902,7 +902,7 @@ cudaError_t launch_cluster(const float* y, const float* g, const float* n2, floa
 // One launch of the iteration on `stream`: y (I, q), the unscaled Gram g
 // (I, I) and n2 (1), or null to read tr g, give the isometric q_out (I, q).
 // with_pdl: the launch may start while its predecessor runs (pdl.cuh), as in
-// K7's chain; K1 alone and K8 launch without it.
+// K7's and K8's chains; K1 alone launches without it.
 int launch(const float* y, const float* g, const float* n2, float* q_out, float* scratch, int I,
            int q, int n_power, const Coeffs* loop, const Coeffs* fin, float dead_tol,
            cudaStream_t st, bool with_pdl = false) {

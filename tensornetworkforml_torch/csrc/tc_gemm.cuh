@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "layout.cuh"     // part(): the scratch's parts on 256-byte boundaries
+#include "pdl.cuh"        // K8 chains the tile launch, the sum and K1's launch
 #include "tile_gemm.cuh"  // block_sum, the cp.async copies
 
 namespace {
@@ -374,6 +376,7 @@ __device__ __forceinline__ void tri_tile(int t, int n, int& it, int& jt) {
 // the tiles of column-tile 0 also sum n2's squares), the rest the upper
 // triangle of G = B B^T (both operands B, k contiguous), mirrored.
 __global__ void __launch_bounds__(NT, 2) tc_sketch_gram_kernel(Gemm y, Gemm gram) {
+  pdl::start();  // K8's chain (pdl.cuh); returns at once for K5 alone
   extern __shared__ __align__(128) float smem[];
   __shared__ float red[NT];
   const int ny = y.nM * y.nN, t = blockIdx.x;
@@ -402,6 +405,7 @@ struct Sums {
 };
 
 __global__ void __launch_bounds__(NT) split_sum_kernel(Sums f) {
+  pdl::start();  // K8's chain (pdl.cuh); returns at once for K4a, K4b and K5 alone
   __shared__ float red[NT];
   const long e = (long)blockIdx.x * NT + threadIdx.x;
   if (f.S > 1) {
@@ -426,8 +430,10 @@ __global__ void __launch_bounds__(NT) split_sum_kernel(Sums f) {
 
 // after y's launch (and gram's, in the same k split): the sum of the split
 // partials into y.c (and gram->c), which are dense, and of the partial sums
-// of squares into n2 where it is wanted; nothing when neither is needed
-inline int sum_splits(const Gemm& y, float* n2, const Gemm* gram, cudaStream_t stream) {
+// of squares into n2 where it is wanted; nothing when neither is needed.
+// pdl: a programmatic dependent launch of the launch before it (pdl.cuh)
+inline int sum_splits(const Gemm& y, float* n2, const Gemm* gram, cudaStream_t stream,
+                      bool pdl = false) {
   if (y.S == 1 && n2 == nullptr) return 0;
   Sums f{};
   f.y = y.c;
@@ -443,8 +449,7 @@ inline int sum_splits(const Gemm& y, float* n2, const Gemm* gram, cudaStream_t s
     f.ng = (long)gram->M * gram->N;
   }
   const long n = f.ny > f.ng ? f.ny : f.ng;
-  split_sum_kernel<<<y.S > 1 ? cdiv_l(n, NT) : 1, NT, 0, stream>>>(f);
-  return (int)cudaGetLastError();
+  return (int)pdl::launch(split_sum_kernel, y.S > 1 ? cdiv_l(n, NT) : 1, NT, 0, stream, pdl, f);
 }
 
 template <bool A_KCONT, bool B_KCONT>
@@ -502,20 +507,41 @@ inline SketchGram sketch_gram_plan(const float* b, const float* om, float* y, fl
   return p;
 }
 
-// K5's scratch, in floats: n2's partial sums, then the partials of y and of G
+// K5's scratch, offsets in floats, each part on a 256-byte boundary
+// (layout.cuh): n2's partial sums, the partials of y, the partials of G
+struct SketchGramLayout {
+  long n2p, yp, gp, floats;
+};
+
+inline SketchGramLayout sketch_gram_layout(const SketchGram& p) {
+  SketchGramLayout s;
+  long o = 0;
+  s.n2p = o; o += part((long)p.y.S * p.y.nM);
+  s.yp = o; o += part(partial_floats(p.y));
+  s.gp = o; o += part(partial_floats(p.g));
+  s.floats = o;
+  return s;
+}
+
+inline SketchGramLayout sketch_gram_layout(int I, int J, int q) {
+  return sketch_gram_layout(sketch_gram_plan(nullptr, nullptr, nullptr, nullptr, I, J, q));
+}
+
 inline long sketch_gram_scratch_floats(int I, int J, int q) {
-  const SketchGram p = sketch_gram_plan(nullptr, nullptr, nullptr, nullptr, I, J, q);
-  return (long)p.y.S * p.y.nM + partial_floats(p.y) + partial_floats(p.g);
+  return sketch_gram_layout(I, J, q).floats;
 }
 
 // K5: y = B Omega, G = B B^T (exactly symmetric), n2 = |B|_F^2; one tile
-// launch, then the fixed-order sum
+// launch, then the fixed-order sum. chained (K8's chain, not K5 alone): the
+// sum is a programmatic dependent launch of the tile launch (pdl.cuh).
 inline int sketch_gram(const float* b, const float* om, float* y, float* gm, float* n2,
-                       float* scratch, int I, int J, int q, cudaStream_t stream) {
+                       float* scratch, int I, int J, int q, cudaStream_t stream,
+                       bool chained = false) {
   SketchGram p = sketch_gram_plan(b, om, y, gm, I, J, q);
-  p.y.n2p = scratch;
-  p.y.cp = scratch + (size_t)p.y.S * p.y.nM;
-  p.g.cp = p.y.cp + partial_floats(p.y);
+  const SketchGramLayout s = sketch_gram_layout(p);
+  p.y.n2p = scratch + s.n2p;
+  p.y.cp = scratch + s.yp;
+  p.g.cp = scratch + s.gp;
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -527,7 +553,7 @@ inline int sketch_gram(const float* b, const float* om, float* y, float* gm, flo
   tc_sketch_gram_kernel<<<dim3(tiles, p.y.S), NT, SMEM_BYTES, stream>>>(p.y, p.g);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sum_splits(p.y, n2, &p.g, stream);
+  return sum_splits(p.y, n2, &p.g, stream, chained);
 }
 
 }  // namespace tc

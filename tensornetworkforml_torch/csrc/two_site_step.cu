@@ -61,6 +61,7 @@
 
 #include <algorithm>
 
+#include "layout.cuh"  // every part of the scratch on a 256-byte boundary
 #include "polar_iterate.cuh"
 #include "presplit.cuh"
 
@@ -88,10 +89,6 @@ struct StepArgs {
 };
 
 int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
-// Every part of the scratch starts on a 256-byte boundary (PART floats): K1's
-// stage copies its scratch by the TMA, and K2's operands by 16-byte cp.async.
-constexpr long PART = 64;
-long part(long n) { return (n + PART - 1) / PART * PART; }
 
 // A tile of lab_new_o = Q^T (g_sc bn_o), times inv at its store when scale
 __device__ __forceinline__ void lab_tile(const StepArgs& a, Smem& sm, int job, bool scale,

@@ -34,8 +34,9 @@ its upper triangle of tiles, mirrored, so exactly symmetric) and their
 ``polar_split`` is the all-in-one split (K8, the counterpart of the JAX
 package's ``polar_split_pallas``): the sketch, the Gram and ``n2`` in one pass
 over B, then ``n_power`` rounds of the iteration, as one C entry on a card
-(``tnml_polar_split`` in ``csrc/polar_iterate.cu``: K5's call, then K1's
-launch), and ``polar_split_reference`` on the CPU;
+(``tnml_polar_split`` in ``csrc/polar_iterate.cu``: K5's two launches, then
+K1's, chained by programmatic dependent launch, the scratch's parts on
+256-byte boundaries), and ``polar_split_reference`` on the CPU;
 ``R = Q^T B`` is a plain float32 product. No sweep reaches it; its split is the
 one inside K7 (``ops/kernels/step_kernel.py``, ``engine="fused"``).
 """
@@ -613,6 +614,23 @@ def _split_lib() -> ctypes.CDLL:
     return lib
 
 
+_LAYOUT_PARTS = ("y", "G", "n2", "K5 n2 partials", "K5 y partials", "K5 G partials",
+                 "K1 scratch", "floats")
+
+
+def split_scratch_layout(I: int, J: int, q: int) -> dict:
+    """K8's scratch layout at ``(I, J, q)`` as the library lays it out: the
+    offset in floats of each part (y, G, n2, K5's partial sums of squares and
+    partial tiles of y and G, K1's scratch) and the total, ``floats``."""
+    fn = _split_lib().tnml_polar_split_layout
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_long)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_long * len(_LAYOUT_PARTS))()
+    n = fn(I, J, q, out)
+    return dict(zip(_LAYOUT_PARTS[:n], out[:n]))
+
+
 def polar_split(
     bmat: torch.Tensor,
     rank: int,
@@ -633,8 +651,9 @@ def polar_split(
     input); the split runs in float32 and returns the input's dtype.
 
     CPU tensors run ``polar_split_reference``. CUDA tensors must be float32 and
-    contiguous and launch the kernel (the sketch and Gram pass, then the
-    iteration); each launch adds one to ``polar_split.launches``.
+    contiguous and launch the kernel (the sketch and Gram tiles, their
+    fixed-order sum, then the iteration: three chained launches); each call
+    adds one to ``polar_split.launches``.
     """
     if bmat.device.type == "cpu":
         return polar_split_reference(bmat, rank, n_power, loop_coeffs, final_coeffs)

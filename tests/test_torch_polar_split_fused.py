@@ -26,7 +26,10 @@ Tolerances:
   another order);
 * on the card, the kernel against the plain version on the same input: the
   projector 1e-3, ``Q R`` 1e-4 of max|B| and the isometry of the live columns
-  1e-4, ``chip_smoke.py``'s K1 limits.
+  1e-4, ``chip_smoke.py``'s K1 limits;
+* on the card, the kernel against ``polar_split_two_stage`` (K5, then K1) where
+  J needs no pad for Omega: bit for bit, since the two run the same sums in
+  the same order.
 """
 
 import numpy as np
@@ -101,6 +104,9 @@ CASES = {
     "rank_above_rows": (lambda: _gapped(32, 128, 32, seed=4), 64, 1, np.float32),
     "float64": (lambda: _gapped(96, 300, 48, seed=5), 48, 1, np.float64),
     "dead_rows": (lambda: _dead_rows(64, 640, 32, seed=6), 32, 1, np.float32),
+    # step 98's two-site matrix shape at M=256 (L=10): K1's cluster form at
+    # I=512, q=256 on the card
+    "m256": (lambda: _gapped(512, 5120, 256, seed=9), 256, 1, np.float32),
 }
 
 
@@ -191,7 +197,7 @@ def _card_agreement(b, q, r, qp):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["two_site", "multi_chunk", "padded_two_rounds", "dead_rows",
-                                  "rank_above_rows", "flagship"])
+                                  "rank_above_rows", "flagship", "m256"])
 def test_kernel_matches_plain_on_card(case, cuda):
     if case == "flagship":  # the two-site matrix's shape at N=196, M=128, L=10
         b, rank, n_power = _gapped(256, 2560, 128, seed=8), 128, 1
@@ -222,3 +228,32 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         tps.polar_split(b.T, 8)  # not contiguous
     with pytest.raises(ValueError):
         tps.polar_split(b[:, :0], 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,J,q", [(256, 2560, 128), (512, 5120, 256)])
+def test_kernel_is_the_two_stage_split_bit_for_bit(I, J, q, cuda):
+    """The flagship's and M=256's two-site shapes: one Omega (no pad), K5's
+    tiles and sums, then K1, in one chain or as two calls."""
+    assert tps._tile_j(I, J)[2] == 0
+    bt = torch.as_tensor(_gapped(I, J, q, seed=I + q), device=cuda)
+    q8, r8 = tps.polar_split(bt, q)
+    q2, r2 = tps.polar_split_two_stage(bt, q)
+    torch.cuda.synchronize()
+    assert torch.equal(q8.view(torch.int32), q2.view(torch.int32))
+    assert torch.equal(r8.view(torch.int32), r2.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("I,J,q", [(256, 2560, 128), (512, 5120, 256), (96, 300, 48),
+                                   (32, 128, 32), (130, 1000, 60)])
+def test_scratch_parts_start_on_256_byte_boundaries(I, J, q, cuda):
+    """Every part of K8's scratch, K5's partials and K1's scratch included,
+    starts a whole number of 64 floats in, in order, inside the size the
+    wrapper allocates."""
+    layout = tps.split_scratch_layout(I, J, q)
+    offsets = list(layout.values())
+    assert len(offsets) == 8 and all(o % 64 == 0 for o in offsets), layout
+    assert offsets == sorted(offsets) and offsets[0] == 0
+    assert layout["floats"] == tps._split_lib().tnml_polar_split_scratch_floats(I, J, q)
+    assert layout["G"] - layout["y"] >= I * q and layout["n2"] - layout["G"] >= I * I
