@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving and training paths, its data layer and its
+training CLI once on an NVIDIA GPU and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
@@ -58,7 +58,7 @@ phase trains the same model at M=512. Phases:
                 xla-engine polar sweep;
   8. two-stage -- polar_split_two_stage (K5, then K1) on the flagship step's
                 two-site matrix, held against hybrid_polar_split (and, in
-                phase 11, once on the M=512 step's two-site matrix);
+                phase 14, once on the M=512 step's two-site matrix);
   9. all-in-one split -- polar_split (K8) against its plain version on the
                 flagship step's two-site matrix, at a J that needs padding
                 with n_power=2 and on the M=256 step's (I=512, J=5120,
@@ -78,7 +78,27 @@ phase trains the same model at M=512. Phases:
                 product_init(canonicalize=True) and canonicalize on the card;
                 one call of each small-I split (gram, cholsvd, rangefinder,
                 svd) against a float64 exact split;
-  11. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
+  11. data    -- the native host library (native/data_core.cpp, built with g++
+                into the package's _build/ beside the kernels, no NumPy
+                fallback) against its NumPy versions: psi_embed, max_pool_2x2,
+                gather_rows, and shuffled_indices against a Python copy of its
+                Fisher-Yates; MNIST and CIFAR-10 verify_checksums on files the
+                phase writes (missing, ok, shape-ok and mismatch);
+  12. teacher -- teacher_task at its defaults on the card and on the CPU: seed
+                0 refused alike on both (a class short of the exact balance),
+                seed 3 built on both, with equal candidate pools, argmax labels
+                and rows agreeing on >= 99.5% and exact class balance; then the
+                flagship student (M=128, polar, canonical, lr 0.02) trained for
+                one epoch of 16 batches of 256 on the card's task: K1 16 x 195
+                launches, test accuracy above 0.2 (twice chance);
+  13. cli     -- cli/training_mnist.py --synthetic --pool --M 128 --svd_method
+                polar --n_epochs 1 --batch_size 128 --restarts 0 on its default
+                device: K1 batches x 195 launches, K2 none, the model finite
+                and on the card, the saved file reloaded by Network.load giving
+                the same scores bit for bit on fresh requests; then
+                training_diagonals and test_diagonals on the card, test_diagonals'
+                (acc, mae) equal to the trained Network's in memory;
+  14. large   -- M=512 (bench.py's stretch_m512_polar): K4a, K4b and K5
                 against their plain versions on the two-site matrix of a
                 mid-chain step and at a ragged shape (K5's G exactly
                 symmetric); polar_split_two_stage once on that matrix (K5's
@@ -88,7 +108,7 @@ phase trains the same model at M=512. Phases:
                 K4a and K4b (3xTF32 on the tensor cores) 195 times each, held
                 against the same sweep with the plain versions and, by
                 quality, against the factored one;
- 12. timing  -- each kernel vs its plain version with CUDA events (plain,
+ 15. timing  -- each kernel vs its plain version with CUDA events (plain,
                 kernel, kernel, plain; K4a, K4b and K5 also vs one cuBLAS
                 yardstick call; K5 at the flagship and at M=512; K1 and K2
                 at the flagship and on the M=256 step's inputs, K2 also by
@@ -107,8 +127,8 @@ phase trains the same model at M=512. Phases:
 
 Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
-train_model, the M=512 training and the M=512 gram-free sweep) and read just
-after it; the comparisons with plain versions happen outside those windows.
+train_model, the teacher task's student, the training CLI, the M=512 training
+and the M=512 gram-free sweep) and read just after it; the comparisons with plain versions happen outside those windows.
 K4a's, K4b's and K5's bound is 3xTF32's (three tensor-core products per
 float32 one at the TF32 rate), and K8's that of its K5 stage plus K1's float32
 iteration; their rows of the kernels line also give the float32 bound and the
@@ -121,6 +141,7 @@ non-zero too.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -133,10 +154,19 @@ from unittest import mock
 import numpy as np
 import torch
 
+from tensornetworkforml_torch.cli import test_diagonals as cli_diag_test
+from tensornetworkforml_torch.cli import training_diagonals as cli_diag_train
+from tensornetworkforml_torch.cli import training_mnist as cli_mnist
+from tensornetworkforml_torch.cli.common import evaluate_loader
+from tensornetworkforml_torch.data import cifar, native
+from tensornetworkforml_torch.data import mnist as mnist_mod
+from tensornetworkforml_torch.data import teacher as teacher_mod
+from tensornetworkforml_torch.data.diagonals import create_dataset
 from tensornetworkforml_torch.data.loader import ArrayLoader, NumpyDataset, prepare_dataset
 from tensornetworkforml_torch.data.mnist import max_pool_2x2, synthetic_mnist
 from tensornetworkforml_torch.models.canonical import canonicalize
 from tensornetworkforml_torch.models.mps import mps_forward, product_init
+from tensornetworkforml_torch.models.network import Network
 from tensornetworkforml_torch.models.serving import Predictor
 from tensornetworkforml_torch.ops import svd as svd_mod
 from tensornetworkforml_torch.ops.embedding import psi_embed
@@ -150,8 +180,9 @@ from tensornetworkforml_torch.ops.kernels import (
 )
 from tensornetworkforml_torch.train import epoch as epoch_mod
 from tensornetworkforml_torch.train import sweep as sweep_mod
+from tensornetworkforml_torch.train import trainer as trainer_mod
 from tensornetworkforml_torch.train.sweep import SweepConfig, one_hot_labels, sweep_once
-from tensornetworkforml_torch.train.trainer import train_model
+from tensornetworkforml_torch.train.trainer import evaluate_accuracy, train_model
 from tensornetworkforml_torch.utils.checkpoint import save_checkpoint
 
 N, M, D, L = 196, 128, 2, 10  # the flagship: cli/training_mnist.py --M 128
@@ -292,6 +323,29 @@ WIDE_K1_RATIO = 2.0
 # float64 each split's distance is its own error, and a K5 as good as float32
 # sits near 1.
 TWO_STAGE_RATIO = 2.0
+# The teacher phase: teacher_task at its defaults (4096 + 1024 samples, N=196,
+# L=10) on the card and on the CPU. The labels are an argmax of float32
+# scores cut at two data-dependent thresholds (the margin quantile and each
+# class's widest-margin cut), so a rounding difference between the two
+# devices' forward passes can move a sample across a cut: at least
+# TEACHER_AGREE of the candidates' labels and of the task's rows must agree.
+# At its defaults the task raises on most seeds in both packages (one class
+# falls short of the exact balance after the margin cut: the JAX package's
+# draw builds at seeds 0 and 3 of 0-9, the port's at 3, 4, 7 and 8; CPU
+# runs), so the phase holds that seed 0 fails alike on both devices and
+# builds seed 3, the first seed at which both packages' tasks build. The
+# flagship student then trains on the card's task for one epoch of
+# TEACHER_BATCHES batches of 256 at the training CLI's M=128 recipe (lr
+# 0.02, renorm_envs, growth cap 0.002), and must score above
+# TEACHER_MIN_ACC, twice chance, on the task's test set.
+TEACHER_SEED, TEACHER_TRAIN, TEACHER_TEST = 3, 4096, 1024
+TEACHER_BATCHES = TEACHER_TRAIN // BATCH
+TEACHER_AGREE, TEACHER_LR, TEACHER_MIN_ACC = 0.995, 0.02, 0.2
+# The CLI phase: cli/training_mnist.py at the flagship, its batch of 128.
+CLI_BATCH = 128
+# training_diagonals there: 1000 samples give one train batch of 800 and one
+# validation batch of 128 (at 500 the 100 validation samples fill none)
+DIAG_SAMPLES = 1000
 
 
 def fail(msg: str) -> None:
@@ -387,18 +441,25 @@ def phase_build() -> None:
         KERNELS[name]()
         return name, time.perf_counter() - t0
 
+    def build_native():
+        t0 = time.perf_counter()
+        native.get_lib()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(OTHER_SOURCES)) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + len(OTHER_SOURCES) + 1) as pool:
         others = []
         if OTHER_CSRC:
             tmp = tempfile.mkdtemp()
             shutil.copytree(OTHER_CSRC, os.path.join(tmp, "csrc"))
             others = [pool.submit(build_other, name, tmp) for name in OTHER_SOURCES]
+        host = pool.submit(build_native)  # the host data library, with g++
         done = list(pool.map(build, KERNELS))
         OTHER.update((name, bind_other(name, job.result()))
                      for name, job in zip(OTHER_SOURCES, others))
     print(f"[build] {len(done)} sources in {time.perf_counter() - t0:.2f} s, in parallel"
-          + (f", with {', '.join(OTHER)} from {OTHER_CSRC}" if OTHER else ""))
+          + (f", with {', '.join(OTHER)} from {OTHER_CSRC}" if OTHER else "")
+          + f"; the native data library (g++) {host.result():.2f} s")
     for name, seconds in done:
         log = open(f"{_build.library_path(name)}.log").read()
         report = [ln.split("ptxas info    : ")[-1].strip() for ln in log.splitlines()
@@ -1455,7 +1516,304 @@ def phase_small_splits() -> None:
         fail("a small-I split is off the exact split, or launched a kernel")
 
 
-# ---- phase 11: the large-bond path (M=512) -------------------------------------
+# ---- phases 11-13: the data layer, the teacher task and the CLIs -----------------
+
+M64 = (1 << 64) - 1
+
+
+def shuffled_reference(n: int, seed: int) -> np.ndarray:
+    """``native/data_core.cpp``'s Fisher-Yates shuffle in Python: xoshiro256**
+    seeded by splitmix64 from ``seed + 1``, ``j = next() % (i + 1)``."""
+    state, s = (seed + 1) & M64, []
+    for _ in range(4):
+        state = (state + 0x9E3779B97F4A7C15) & M64
+        z = ((state ^ (state >> 30)) * 0xBF58476D1CE4E5B9) & M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & M64
+        s.append(z ^ (z >> 31))
+
+    def rotl(x, k):
+        return ((x << k) | (x >> (64 - k))) & M64
+
+    idx = list(range(n))
+    for i in range(n - 1, 0, -1):
+        result = (rotl((s[1] * 5) & M64, 7) * 9) & M64
+        t = (s[1] << 17) & M64
+        s[2] ^= s[0]
+        s[3] ^= s[1]
+        s[1] ^= s[2]
+        s[0] ^= s[3]
+        s[2] ^= t
+        s[3] = rotl(s[3], 45)
+        j = result % (i + 1)
+        idx[i], idx[j] = idx[j], idx[i]
+    return np.array(idx, dtype=np.int64)
+
+
+def write_idx(path: str, arr: np.ndarray, gz: bool = False) -> None:
+    import gzip
+    import struct
+
+    header = struct.pack(">HBB", 0, 0x08, arr.ndim) + struct.pack(">" + "I" * arr.ndim,
+                                                                 *arr.shape)
+    with (gzip.open if gz else open)(path, "wb") as fh:
+        fh.write(header + arr.astype(np.uint8).tobytes())
+
+
+def phase_data() -> None:
+    """The native host library built into _build/ and loaded (no NumPy
+    fallback here), its functions against their NumPy versions, and the
+    MNIST and CIFAR-10 checksum verdicts on files this phase writes."""
+    import hashlib
+
+    if not native.available():
+        fail(f"the native data library did not build or load: {native.build_error()}")
+    so = native.library_path()
+    if so.parent != _build.BUILD_DIR or not so.exists():
+        fail(f"the native library is at {so}, not in {_build.BUILD_DIR}")
+    rng = np.random.default_rng(SEED + 11)
+    x32 = rng.random((BATCH, N)).astype(np.float32)
+    x64 = x32.astype(np.float64)
+    half = (np.pi / 2.0) * x64
+    ref64 = np.stack([np.sin(half), np.cos(half)], axis=-1)
+    # the library computes the float32 map in double and rounds once
+    emb32, emb64 = native.psi_embed(x32), native.psi_embed(x64)
+    ulp64 = float((np.abs(emb64 - ref64) / np.spacing(np.abs(ref64) + 1e-300)).max())
+    imgs = rng.random((64, 28, 28))
+    idx = native.shuffled_indices(6000, SEED + 12)
+    rows = native.gather_rows(x32, idx[:BATCH] % BATCH)
+    checks = {
+        "psi_embed float32": np.array_equal(emb32, ref64.astype(np.float32)),
+        "psi_embed float64 (<= 1 ulp)": ulp64 <= 1.0,
+        "max_pool_2x2": np.array_equal(native.max_pool_2x2(imgs), max_pool_2x2(imgs)),
+        "shuffled_indices": np.array_equal(idx, shuffled_reference(6000, SEED + 12)),
+        "gather_rows": np.array_equal(rows, x32[idx[:BATCH] % BATCH]),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        empty = mnist_mod.verify_checksums(tmp)
+        write_idx(os.path.join(tmp, "train-images-idx3-ubyte"),
+                  rng.integers(0, 256, (8, 28, 28)))  # wrong geometry
+        write_idx(os.path.join(tmp, "train-labels-idx1-ubyte"), rng.integers(0, 10, 60000))
+        write_idx(os.path.join(tmp, "t10k-images-idx3-ubyte"),
+                  rng.integers(0, 256, (10000, 28, 28)))
+        gz = os.path.join(tmp, "t10k-labels-idx1-ubyte.gz")
+        write_idx(gz, rng.integers(0, 10, 10000), gz=True)
+        verdicts = mnist_mod.verify_checksums(tmp)
+        md5 = hashlib.md5(open(gz, "rb").read()).hexdigest()
+        with mock.patch.dict(mnist_mod.MNIST_GZ_MD5, {"t10k-labels-idx1-ubyte.gz": md5}):
+            gz_ok = mnist_mod.verify_checksums(tmp)["t10k-labels-idx1-ubyte"]
+        rec = np.zeros((10000, 3073), dtype=np.uint8)
+        rec[:, 0] = rng.integers(0, 10, 10000)
+        rec[:, 1:] = rng.integers(0, 256, (10000, 3072))
+        rec.tofile(os.path.join(tmp, "data_batch_1.bin"))
+        rec[0, 0] = 10  # a label out of range
+        rec.tofile(os.path.join(tmp, "test_batch.bin"))
+        cifar_verdicts = cifar.verify_checksums(tmp)
+    checks["MNIST verdicts"] = (
+        set(empty.values()) == {"missing"} and gz_ok == "ok"
+        and verdicts == {"train-images-idx3-ubyte": "mismatch",
+                         "train-labels-idx1-ubyte": "shape-ok",
+                         "t10k-images-idx3-ubyte": "shape-ok",
+                         "t10k-labels-idx1-ubyte": "shape-ok"})
+    checks["CIFAR-10 verdicts"] = (
+        cifar_verdicts["archive"] == "missing" and cifar_verdicts["data_batch_1.bin"] == "shape-ok"
+        and cifar_verdicts["test_batch.bin"] == "mismatch"
+        and cifar_verdicts["data_batch_2.bin"] == "missing")
+    print(f"[data] native library {so.name} (built in _build/, version "
+          f"{native.get_lib().tnml_version()}); psi_embed float64 within {ulp64:g} ulp of NumPy; "
+          + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"the data layer is off: {bad}")
+
+
+def teacher_build(device, seed):
+    """teacher_task at its defaults on ``device``: ``(task, pools, seconds)``,
+    with each chunk of candidate pixels the teachers scored and its scores."""
+    pools = []
+    real = teacher_mod.teacher_scores
+
+    def keep(teachers, x):
+        f = real(teachers, x)
+        pools.append((x, f))
+        return f
+
+    with mock.patch.object(teacher_mod, "teacher_scores", keep):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task = teacher_mod.teacher_task(seed=seed, device=device)
+        seconds = time.perf_counter() - t0
+    return task, pools, seconds
+
+
+def phase_teacher() -> dict:
+    """teacher_task at its defaults (N=196, L=10, teacher_m=4, 4096 + 1024
+    samples, proto_mix 0.2) on the card and on the CPU, held against each
+    other; then the flagship student (M=128, polar, canonical) trained on the
+    card's task for one epoch of TEACHER_BATCHES batches."""
+    # the port's teacher draw at seed 0 leaves one class short of the exact
+    # balance, as the JAX package's draw does at most seeds: both devices must
+    # refuse it alike
+    for device in (DEVICE, "cpu"):
+        try:
+            teacher_mod.teacher_task(seed=0, device=device)
+            fail(f"teacher_task(seed=0) built on {device}; the port's draw leaves a class short")
+        except ValueError as exc:
+            print(f"[teacher] seed 0 on {device}: ValueError ({exc})")
+    (card, card_pools, card_s) = teacher_build(DEVICE, TEACHER_SEED)
+    (host, host_pools, host_s) = teacher_build("cpu", TEACHER_SEED)
+    pools_equal = len(card_pools) == len(host_pools) and all(
+        np.array_equal(a[0], b[0]) for a, b in zip(card_pools, host_pools))
+    fc = np.concatenate([f for _, f in card_pools])
+    fh = np.concatenate([f for _, f in host_pools])
+    score_gap = float(np.abs(fc - fh).max() / np.abs(fh).max())
+
+    def z(f):
+        return (f - f.mean(0)) / f.std(0)
+
+    pool_agree = float(np.mean(z(fc).argmax(1) == z(fh).argmax(1)))
+    xs_c, xs_h = np.concatenate([card[0], card[2]]), np.concatenate([host[0], host[2]])
+    ys_c, ys_h = np.concatenate([card[1], card[3]]), np.concatenate([host[1], host[3]])
+    row_agree = float(np.mean(np.all(xs_c == xs_h, axis=1) & (ys_c == ys_h)))
+    balance = [np.bincount(y, minlength=L) for y in (ys_c, ys_h)]
+    balanced = all(b.min() == b.max() == (TEACHER_TRAIN + TEACHER_TEST) // L for b in balance)
+    print(f"[teacher] teacher_task(seed={TEACHER_SEED}) at its defaults: built on the card in "
+          f"{card_s:.3f} s, on the CPU in {host_s:.3f} s; candidate pools equal: {pools_equal}; "
+          f"scores {score_gap:.3g} of max apart; argmax labels agree on {pool_agree:.5f} of "
+          f"the pool, the task's rows (same sample, same label) on {row_agree:.5f} (need "
+          f">= {TEACHER_AGREE}); classes exactly balanced: {balanced}")
+    if not (pools_equal and pool_agree >= TEACHER_AGREE and row_agree >= TEACHER_AGREE
+            and balanced):
+        fail("the teacher task on the card disagrees with the one on the CPU")
+
+    tr_x, tr_y, te_x, te_y = card
+    train_loader = ArrayLoader(NumpyDataset(tr_x, tr_y), BATCH, drop_last=True)
+    test_loader = ArrayLoader(NumpyDataset(te_x, te_y), BATCH, drop_last=True)
+    if len(train_loader) != TEACHER_BATCHES:
+        fail(f"the teacher task gave {len(train_loader)} batches of {BATCH}")
+    student = product_init(torch.Generator().manual_seed(SEED), N=N, M=M, D=D, L=L,
+                           act_fn="linear", loss_fn="MSE", calibration_x=tr_x[:BATCH])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    student, val_acc, _ = train_model(
+        student, train_loader, test_loader, lr=TEACHER_LR, n_epochs=1, weight_dec=WD,
+        L2_flag=False, svd_method="polar", split_mode="canonical", renorm_envs=True,
+        growth_cap=0.002, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    test_acc = evaluate_accuracy(student, test_loader)
+    want = TEACHER_BATCHES * STEPS
+    print(f"[teacher] student N={N} M={M} L={L} polar, canonical, lr {TEACHER_LR}, "
+          f"{TEACHER_BATCHES} batches of {BATCH} on the card's task: {seconds:.2f} s "
+          f"({seconds / TEACHER_BATCHES * 1e3:.1f} ms/batch, validation included); K1 "
+          f"launches {launched['polar_iterate']} (want {want}); test accuracy {test_acc:.4f} "
+          f"(need > {TEACHER_MIN_ACC}; chance {1 / L:g})")
+    if launched["polar_iterate"] != want or sum(launched.values()) != want:
+        fail(f"the student's training launched {launched}")
+    if student.device.type != "cuda" or not (torch.isfinite(student.sites).all()
+                                             and torch.isfinite(student.label_site).all()):
+        fail("the student is non-finite or off the card")
+    if not test_acc > TEACHER_MIN_ACC:
+        fail(f"the student reached {test_acc:.4f} on the teacher task's test set")
+    return {"card_s": card_s, "cpu_s": host_s, "test_acc": test_acc, "launches": want,
+            "ms_per_batch": seconds / TEACHER_BATCHES * 1e3}
+
+
+@contextlib.contextmanager
+def saved_models():
+    """Within the block, every model a CLI saves through ``Network.save`` is
+    kept, in order."""
+    models = []
+    real = Network.save
+
+    def keep(net, path):
+        models.append(net.mps)
+        real(net, path)
+
+    with mock.patch.object(Network, "save", keep):
+        yield models
+
+
+def phase_cli(x_fresh) -> dict:
+    """The port's training_mnist CLI at the flagship on the card (its default
+    device), through K1; the model it saved reloaded by Network.load; then
+    training_diagonals and test_diagonals on the card."""
+    timed = {}
+    real_train = trainer_mod.train_model
+
+    @functools.wraps(real_train)
+    def timed_train(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_train(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed["seconds"] = time.perf_counter() - t0
+        timed["batches"] = len(args[1])
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mnist10.npz")
+        argv = ["--synthetic", "--pool", "--M", str(M), "--svd_method", "polar", "--n_epochs",
+                "1", "--batch_size", str(CLI_BATCH), "--restarts", "0", "--out", out]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with saved_models() as saved, mock.patch.object(trainer_mod, "train_model", timed_train):
+            val_acc, test_acc = cli_mnist.main(argv)
+        main_s = time.perf_counter() - t0
+        launched = counts()
+        batches = timed["batches"]
+        if launched["polar_iterate"] != batches * STEPS or launched["two_site_presplit"]:
+            fail(f"training_mnist launched K1 {launched['polar_iterate']} times (want "
+                 f"{batches} x {STEPS}) and K2 {launched['two_site_presplit']} (want 0)")
+        mps = saved[0]
+        if mps.device.type != "cuda" or mps.M != M or not (
+                torch.isfinite(mps.sites).all() and torch.isfinite(mps.label_site).all()):
+            fail(f"training_mnist's model is on {mps.device}, M={mps.M}, or non-finite")
+        net = Network.__new__(Network)
+        net.mps = mps
+        loaded = Network.load(out)  # the default device: the card
+        got, want = loaded.forward(x_fresh).elem, net.forward(x_fresh).elem
+        same = torch.equal(got, want)
+        ms_batch = timed["seconds"] / batches * 1e3
+        print(f"[cli] training_mnist {' '.join(argv[:-2])} on the default device "
+              f"({loaded.device}): {batches} batches of {CLI_BATCH}, {ms_batch:.1f} ms/batch "
+              f"(validation included; {main_s:.2f} s for the whole command); val acc "
+              f"{val_acc[-1]:.4f}, test acc {test_acc:.4f}; K1 launches "
+              f"{launched['polar_iterate']} = {batches} x {STEPS}, K2 "
+              f"{launched['two_site_presplit']}; Network.load of the saved file (on "
+              f"{loaded.device}) gives the same scores bit for bit on {len(x_fresh)} fresh "
+              f"requests: {same}")
+        if not same or loaded.device.type != "cuda":
+            fail("the model training_mnist saved does not reload to the same scores on the card")
+
+        diag = os.path.join(tmp, "diag.npz")
+        with saved_models() as diag_saved:
+            diag_val = cli_diag_train.main(["--n_samples", str(DIAG_SAMPLES), "--n_epochs", "2",
+                                            "--seed", str(SEED), "--out", diag,
+                                            "--results_dir", tmp])
+        acc, mae = cli_diag_test.main(["--filename", diag, "--seed", str(SEED + 1)])
+        trained = Network.__new__(Network)
+        trained.mps = diag_saved[0]
+        data, label = create_dataset(1000, 8, 0.6, seed=SEED + 1)
+        loader = prepare_dataset(data, label, 0, 0, train_batch_size=1, val_batch_size=1,
+                                 test_batch_size=128, embed=False)[2]
+        mem = evaluate_loader(trained, loader)
+        ok = (trained.device.type == "cuda" and (acc, mae) == mem and acc >= 0.9)
+        print(f"[cli] training_diagonals ({DIAG_SAMPLES} samples, 2 epochs; val "
+              f"{diag_val[-1]:.4f}) then "
+              f"test_diagonals on the card: acc {acc:.4f}, mae {mae:.6f}; the trained Network "
+              f"in memory gives acc {mem[0]:.4f}, mae {mem[1]:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("test_diagonals on the saved model disagrees with the model in memory")
+    return {"launches": launched["polar_iterate"], "ms_per_batch": ms_batch,
+            "val_acc": val_acc[-1], "test_acc": test_acc}
+
+
+# ---- phase 14: the large-bond path (M=512) -------------------------------------
 
 def large_cfg(factored: str) -> SweepConfig:
     return flagship_cfg("xla")._replace(factored_update=factored)
@@ -1687,7 +2045,7 @@ def phase_large_sweep(mps0, xb, yb, x_fresh, y_fresh) -> dict:
     return launched
 
 
-# ---- phase 12: timing ---------------------------------------------------------
+# ---- phase 15: timing ---------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 20) -> float:
     fn()
@@ -2324,6 +2682,9 @@ def main() -> None:
     phase_rangefinder_sweep(mps, xb, yb, x_fresh, y_fresh)
     phase_canonical(requests, rf_trained, x_fresh)
     phase_small_splits()
+    phase_data()
+    teacher = phase_teacher()
+    cli = phase_cli(x_fresh)
 
     big = large_model(requests)
     if big.device.type != "cuda":
@@ -2466,6 +2827,9 @@ def main() -> None:
             m = M_WIDE if key == ("polar_iterate", M_WIDE) else M
             row["shape"] = f"I={m * D} q={m}"
             row["form"] = k1_form(m * D, m)
+            if m == M:  # K1's launches on the teacher student's and the CLI's paths
+                row["launches_teacher"] = teacher["launches"]
+                row["launches_cli"] = cli["launches"]
         if key in tensor_core or name in tensor_core:  # the float32 bound beside the 3xTF32 one
             row["bound_fp32_ms"] = bound_ms(*work[key if key in work else name])[0]
             row["bound_share"] = b_ms / ms[key][0]
@@ -2474,7 +2838,11 @@ def main() -> None:
           f"ms/batch; rangefinder sweep {ms['rf_sweep']:.1f} ms, its train_model "
           f"{rf_batch_s * 1e3:.1f} ms/batch; M={M_LARGE} ms per sweep {ms['large_sweep']}; "
           f"M={M_LARGE} train_model {large_batch_s * 1e3:.1f} ms/batch; M={M_WIDE} ms per sweep "
-          f"{ms['wide_sweep']}; {time.perf_counter() - T_START:.1f} s in all")
+          f"{ms['wide_sweep']}; teacher task built in {teacher['card_s']:.3f} s on the card and "
+          f"{teacher['cpu_s']:.3f} s on the CPU, its student {teacher['ms_per_batch']:.1f} "
+          f"ms/batch, test acc {teacher['test_acc']:.4f}; training_mnist CLI "
+          f"{cli['ms_per_batch']:.1f} ms/batch at B={CLI_BATCH}, val acc {cli['val_acc']:.4f}, "
+          f"test acc {cli['test_acc']:.4f}; {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

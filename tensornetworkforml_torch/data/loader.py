@@ -1,4 +1,4 @@
-"""Host data pipeline: datasets and batching (NumPy only).
+"""Host data pipeline: datasets and batching (NumPy, and the native embedding).
 
 The reference uses ``torch.utils.data`` purely as batching plumbing
 (``data_generator.py:90-194``): a ``NumpyDataset``, a shuffled subset, and
@@ -16,9 +16,6 @@ module is the port's copy of the JAX package's ``data/loader.py`` surface:
   partial batch of train and validation.
 
 The same seeds give the same batches as the JAX package's loaders.
-``psi_embed_host`` is NumPy; the JAX package's ctypes path through
-``native/data_core.cpp`` computes the same values and is not ported
-(ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -140,9 +137,11 @@ def warmup_batch_size(batch_size: int) -> int:
 
 def psi_embed_host(x: np.ndarray) -> np.ndarray:
     """Host psi embedding ``(..., N) -> (..., N, 2)``: ``[sin(pi x/2),
-    cos(pi x/2)]`` in the dtype of ``x``."""
-    half_pi_x = (np.pi / 2.0) * np.asarray(x)
-    return np.stack([np.sin(half_pi_x), np.cos(half_pi_x)], axis=-1)
+    cos(pi x/2)]`` in the dtype of ``x``, through the multithreaded native
+    library (``data/native.py``), or NumPy where it cannot be built."""
+    from tensornetworkforml_torch.data import native
+
+    return native.psi_embed(np.ascontiguousarray(x))
 
 
 def prepare_dataset(

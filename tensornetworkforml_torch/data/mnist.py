@@ -5,6 +5,8 @@
   local directory (also found under ``<dir>/MNIST/raw`` as torchvision lays
   them out). No network access is attempted.
 * ``max_pool_2x2`` is a reshape-max.
+* ``verify_checksums`` checks local files against the published MD5s and
+  the canonical IDX geometry.
 * ``synthetic_mnist`` generates a deterministic MNIST-shaped stand-in
   (digit-dependent patterns + noise) so the 10-class pipeline can be
   exercised on machines without the real data.
@@ -15,6 +17,7 @@ The models take pixels in [0, 1], pooled to 14x14: ``max_pool_2x2(x / 255)``.
 from __future__ import annotations
 
 import gzip
+import hashlib
 import os
 import struct
 from typing import Tuple
@@ -85,6 +88,53 @@ def get_MNIST_dataset(
         arrays["test_images"].astype(np.float64),
         arrays["test_labels"].astype(np.int64),
     )
+
+
+# Published MD5s of the canonical gzipped IDX files (torchvision's
+# ``MNIST.resources`` constants), for ``verify_checksums``.
+MNIST_GZ_MD5 = {
+    "train-images-idx3-ubyte.gz": "f68b3c2dcbeaaa9fbdd348bbdeb94873",
+    "train-labels-idx1-ubyte.gz": "d53e105ee54ea40749a09fcbcd1e9432",
+    "t10k-images-idx3-ubyte.gz": "9fb629c4189551a2d022fa330f9573f3",
+    "t10k-labels-idx1-ubyte.gz": "ec29112dd5afa0611ce80d1b7f02629c",
+}
+
+# IDX geometry of the canonical files: a structural check that holds for
+# gzipped and uncompressed copies and for benign re-compressions.
+MNIST_IDX_SHAPES = {
+    "train-images-idx3-ubyte": (60000, 28, 28),
+    "train-labels-idx1-ubyte": (60000,),
+    "t10k-images-idx3-ubyte": (10000, 28, 28),
+    "t10k-labels-idx1-ubyte": (10000,),
+}
+
+
+def verify_checksums(data_dir: str) -> dict:
+    """Validate the MNIST files under ``data_dir``.
+
+    For each canonical file: ``"missing"`` if absent; ``"ok"`` if a .gz
+    copy matches its published md5; ``"shape-ok"`` if the md5 does not
+    apply (an uncompressed or re-compressed copy) but the IDX header parses
+    to the canonical geometry; ``"mismatch"`` otherwise.
+    """
+    out = {}
+    for base, shape in MNIST_IDX_SHAPES.items():
+        path = _find(data_dir, base)
+        if path is None:
+            out[base] = "missing"
+            continue
+        if path.endswith(".gz"):
+            with open(path, "rb") as fh:
+                md5 = hashlib.md5(fh.read()).hexdigest()
+            if md5 == MNIST_GZ_MD5[base + ".gz"]:
+                out[base] = "ok"
+                continue
+        try:
+            arr = _read_idx(path)
+            out[base] = "shape-ok" if arr.shape == shape else "mismatch"
+        except Exception:
+            out[base] = "mismatch"
+    return out
 
 
 def max_pool_2x2(x: np.ndarray) -> np.ndarray:

@@ -14,6 +14,7 @@ from tensornetworkforml_torch.models.canonical import (
     normalize_label,
     right_canonicalize,
 )
+from tensornetworkforml_torch.models.network import Network
 from tensornetworkforml_torch.models.serving import Predictor
 
 __all__ = [
@@ -24,6 +25,7 @@ __all__ = [
     "apply_act_fn",
     "loss_derivative",
     "accuracy_from_scores",
+    "Network",
     "Predictor",
     "canonical_init",
     "canonicalize",
