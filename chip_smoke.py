@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths, its data layer and its
-training CLI once on an NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths, its data layer, its
+training CLI and its off-path trainers once on an NVIDIA GPU and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
@@ -123,12 +123,34 @@ phase trains the same model at M=512. Phases:
                 the rest, the idle share), and for
                 context torch.linalg.qr on K6's panel, the hybrid step (K2,
                 K1 and two products) beside K7 and polar_split_two_stage
-                beside K8 at both shapes.
+                beside K8 at both shapes;
+ 16. brickwall -- cli/training_mnist.py --synthetic --pool --M 128 --trainer
+                brickwall --svd_method cholqr --n_epochs 1 on its default device
+                (N=196, M=128, B=128, K=98 pairs a layer): no kernel launches,
+                every brick layer finite, the saved model scored by
+                Predictor.from_checkpoint bit for bit as the model in memory and
+                loaded by load_any_checkpoint as a BoundaryMPS; one flagship
+                brick sweep held against its float64 run (BRICK_F64_TOL), its
+                time and device profile;
+ 17. onesite -- the same CLI with --trainer onesite and the same checks; a
+                flagship one-site sweep's time and profile; one sweep at N=784
+                (--full), M=16 with renorm held against its float64 run;
+ 18. autodiff -- AutodiffTrainer (Adam, softmax_xent, lr 1e-3) on the flagship
+                MPS, its first step held against a float64 run of it; one
+                BoundaryAutodiffTrainer step on the brick-wall model and one
+                ring_trainer step at the flagship's width;
+ 19. ensemble -- ensemble_init (N=196, L=10, m=8) trained by Adam on the
+                teacher task; its to_direct_sum (M=80) served by Predictor
+                through K3, held against ensemble_forward, K3 against its plain
+                version and timed at M=80; probe_init's argmax on the same task
+                against the probe's.
 
 Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
-train_model, the teacher task's student, the training CLI, the M=512 training
-and the M=512 gram-free sweep) and read just after it; the comparisons with plain versions happen outside those windows.
+train_model, the teacher task's student, the training CLI, the M=512 training,
+the M=512 gram-free sweep, the boundary-label CLIs and sweeps and the autodiff
+steps, which must launch no kernel, the ensemble's training and its direct
+sum's serving) and read just after it; the comparisons with plain versions happen outside those windows.
 K4a's, K4b's and K5's bound is 3xTF32's (three tensor-core products per
 float32 one at the TF32 rate), and K8's that of its K5 stage plus K1's float32
 iteration; their rows of the kernels line also give the float32 bound and the
@@ -164,8 +186,12 @@ from tensornetworkforml_torch.data import teacher as teacher_mod
 from tensornetworkforml_torch.data.diagonals import create_dataset
 from tensornetworkforml_torch.data.loader import ArrayLoader, NumpyDataset, prepare_dataset
 from tensornetworkforml_torch.data.mnist import max_pool_2x2, synthetic_mnist
+from tensornetworkforml_torch.models import ensemble as ensemble_mod
+from tensornetworkforml_torch.models.boundary import BoundaryMPS, boundary_forward
 from tensornetworkforml_torch.models.canonical import canonicalize
 from tensornetworkforml_torch.models.mps import mps_forward, product_init
+from tensornetworkforml_torch.models.probe_init import fit_linear_probe, probe_init, probe_scores
+from tensornetworkforml_torch.models.ring import ring_product_init, ring_trainer
 from tensornetworkforml_torch.models.network import Network
 from tensornetworkforml_torch.models.serving import Predictor
 from tensornetworkforml_torch.ops import svd as svd_mod
@@ -178,12 +204,20 @@ from tensornetworkforml_torch.ops.kernels import (
     split_kernel,
     step_kernel,
 )
+from tensornetworkforml_torch.train import brickwall as brick_mod
 from tensornetworkforml_torch.train import epoch as epoch_mod
+from tensornetworkforml_torch.train import onesite as onesite_mod
 from tensornetworkforml_torch.train import sweep as sweep_mod
 from tensornetworkforml_torch.train import trainer as trainer_mod
 from tensornetworkforml_torch.train.sweep import SweepConfig, one_hot_labels, sweep_once
+from tensornetworkforml_torch.train.autodiff import (
+    AutodiffConfig,
+    AutodiffTrainer,
+    BoundaryAutodiffTrainer,
+)
 from tensornetworkforml_torch.train.trainer import evaluate_accuracy, train_model
-from tensornetworkforml_torch.utils.checkpoint import save_checkpoint
+from tensornetworkforml_torch.utils import checkpoint as ckpt_mod
+from tensornetworkforml_torch.utils.checkpoint import load_any_checkpoint, save_checkpoint
 
 N, M, D, L = 196, 128, 2, 10  # the flagship: cli/training_mnist.py --M 128
 STEPS = N - 1  # two-site steps per sweep
@@ -346,6 +380,46 @@ CLI_BATCH = 128
 # training_diagonals there: 1000 samples give one train batch of 800 and one
 # validation batch of 128 (at 500 the 100 validation samples fill none)
 DIAG_SAMPLES = 1000
+# The boundary-label phases. [brickwall] and [onesite] run
+# cli/training_mnist.py --synthetic --pool --M 128 --trainer T --n_epochs 1 at
+# its batch of 128 on its default device: N=196, M=128, L=10; each brick layer
+# splits K = 98 (even) or 97 (odd) two-site matrices of (256, 256) to rank 128
+# by batched CholQR at the CLI's lr min(0.02, 0.5 / N).
+BRICK_LR = min(0.02, 0.5 / N)
+# One flagship brick sweep on the card against a float64 run of the same sweep
+# (same batch, same Omega), on fresh requests' scores relative to max|f|. The
+# float64 run takes the float32 path's Cholesky ridge (ops/svd.py::_cholqr_eps:
+# 1.2e-4 at q = 128 in float32, 1e-12 in float64): the ridge shrinks each split
+# by about that much, which compounds over a sweep's 195 pair splits to ~1e-2
+# of max|f| (1.2e-2 against a float64 run with its own ridge, CPU), so that run
+# is another algorithm and is printed, not held. With the float32 ridge the
+# float64 run sits 9.7e-6 from the float32 one and two float32 runs (one with w
+# rescaled by 1 + RF_PERTURB) 4.7e-6 apart, while the sweep moves the function
+# by ~1.06 of max|f| (CPU, the flagship shapes). 1e-3 leaves a hundredfold
+# margin and still catches a fault in a pair's update (lr K ~ 0.25 of f).
+BRICK_F64_TOL = 1e-3
+# One one-site sweep (renorm=True, lr 0.05: the CLI's long-chain rate) at
+# N=784 (--full) and M=16, B=128, against its float64 run: 1.8e-6 of max|f|
+# apart on the CPU, as two float32 runs are (w rescaled by 1 + RF_PERTURB),
+# while the sweep moves max|f| ~70-fold. 1e-3.
+ONESITE_LONG_N, ONESITE_LONG_M, ONESITE_LONG_LR, ONESITE_F64_TOL = 784, 16, 0.05, 1e-3
+# [autodiff]: AutodiffTrainer (softmax_xent, Adam, lr 1e-3) for AD_STEPS steps of
+# BATCH on the flagship MPS; the first step held against a float64 run of it:
+# the loss to AD_LOSS_TOL relative (9.3e-8 on the CPU), the gradients to
+# AD_GRAD_TOL of their max (2.2e-6), the updated tensors to AD_PARAM_TOL of their
+# max (1.9e-4: Adam's first step divides each gradient by its own size, so the
+# float32 rounding of the gradients near zero moves their updates by up to a
+# tenth of lr; the step moves the sites by ~1.1e-3 of their max).
+AD_STEPS, AD_LR = 3, 1e-3
+AD_LOSS_TOL, AD_GRAD_TOL, AD_PARAM_TOL = 1e-5, 1e-4, 1e-3
+# [ensemble]: ensemble_init at N=196, L=10, m=8 (scripts/teacher_ensemble.py's
+# per-class bond) on [teacher]'s task, ENS_STEPS Adam steps of ENS_BATCH (softmax
+# cross-entropy, as that script) on the card with the head's bias held at 0, so
+# that to_direct_sum is exact; its direct sum (M = 80) is served by Predictor at
+# BATCH through K3 and held against ensemble_forward at TOL. The script's rate,
+# 3e-3 at N=64, diverges at N=196 (loss 2.3 -> 1.9e7 within 9 steps, CPU); 3e-4
+# trains (2.30 -> 1.31 in 16 steps, test accuracy 0.76, CPU).
+ENS_M, ENS_BATCH, ENS_STEPS, ENS_LR = 8, 1024, 16, 3e-4
 
 
 def fail(msg: str) -> None:
@@ -1717,7 +1791,7 @@ def phase_teacher() -> dict:
         fail("the student is non-finite or off the card")
     if not test_acc > TEACHER_MIN_ACC:
         fail(f"the student reached {test_acc:.4f} on the teacher task's test set")
-    return {"card_s": card_s, "cpu_s": host_s, "test_acc": test_acc, "launches": want,
+    return {"card_s": card_s, "cpu_s": host_s, "test_acc": test_acc, "launches": want, "task": card,
             "ms_per_batch": seconds / TEACHER_BATCHES * 1e3}
 
 
@@ -2630,6 +2704,401 @@ def other_turns(lib, sites, x, B) -> float:
     return (o1 + o2) / 2
 
 
+# ---- phases 16-19: the boundary-label family, autodiff and the ensemble ----------
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b|, in float64."""
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+@contextlib.contextmanager
+def saved_boundary_models():
+    """Within the block, every model ``save_boundary_checkpoint`` writes is
+    kept, in order."""
+    models = []
+    real = ckpt_mod.save_boundary_checkpoint
+
+    def keep(model, path):
+        models.append(model)
+        real(model, path)
+
+    with mock.patch.object(ckpt_mod, "save_boundary_checkpoint", keep):
+        yield models
+
+
+@contextlib.contextmanager
+def finite_layers(seen: dict):
+    """Within the block, every brick layer's sites must come out finite:
+    torch.linalg.cholesky_ex checks no pivot, so a failed factorisation would
+    turn a layer to NaN silently."""
+    real = brick_mod._brick_layer
+
+    @functools.wraps(real)
+    def checked(sites, *args, **kwargs):
+        out, metrics = real(sites, *args, **kwargs)
+        seen["layers"] += 1
+        if not bool(torch.isfinite(out).all()):
+            fail(f"brick layer {seen['layers']} (parity {args[5]}) came out non-finite")
+        return out, metrics
+
+    with mock.patch.object(brick_mod, "_brick_layer", checked):
+        yield
+
+
+def profile_line(what, fn, wall_ms) -> float:
+    """Device busy time (the union of kernel intervals) of one call of ``fn``,
+    its idle share against ``wall_ms`` and its largest kernels; the idle share."""
+    table = device_time_table(fn, timeline=True)
+    busy = union_ms([(a, b) for _, a, b in table["intervals"]])
+    idle = max(0.0, 1 - busy / wall_ms)
+    top = sorted(table["by_kernel_ms"].items(), key=lambda kv: -kv[1])[:4]
+    print(f"[profile] {what}: device busy {busy:.2f} ms of {wall_ms:.2f} ms unprofiled (idle "
+          f"share {idle:.3f}), {len(table['intervals'])} device events; "
+          + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in top))
+    return idle
+
+
+def phase_boundary_cli(trainer: str, x_fresh) -> dict:
+    """cli/training_mnist.py --trainer brickwall|onesite at the flagship on its
+    default device (the card): no kernel launches, every brick layer finite,
+    the saved model reloaded by Predictor.from_checkpoint scoring bit for bit
+    as the model in memory, and load_any_checkpoint giving a BoundaryMPS."""
+    module, name = ((brick_mod, "train_brickwall") if trainer == "brickwall"
+                    else (onesite_mod, "train_boundary_model"))
+    real = getattr(module, name)
+    timed = {}
+
+    @functools.wraps(real)
+    def timed_train(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        timed["seconds"] = time.perf_counter() - t0
+        timed["batches"] = len(args[1])
+        return out
+
+    seen = {"layers": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, f"{trainer}.npz")
+        argv = ["--synthetic", "--pool", "--M", str(M), "--trainer", trainer, "--n_epochs", "1"]
+        if trainer == "brickwall":
+            argv += ["--svd_method", "cholqr"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with saved_boundary_models() as saved, mock.patch.object(module, name, timed_train), \
+                finite_layers(seen):
+            val_acc, test_acc = cli_mnist.main(argv + ["--out", out])
+        main_s = time.perf_counter() - t0
+        launched = counts()
+        model = saved[0]
+        loaded = load_any_checkpoint(out)  # the default device: the card
+        in_memory = Predictor(model)
+        from_file = Predictor.from_checkpoint(out)
+        got, want = from_file.scores(x_fresh), in_memory.scores(x_fresh)
+    batches = timed["batches"]
+    ms_batch = timed["seconds"] / batches * 1e3
+    same = np.array_equal(got, want)
+    layers = f", {seen['layers']} brick layers, each finite" if trainer == "brickwall" else ""
+    print(f"[{trainer}] training_mnist {' '.join(argv)} on the default device "
+          f"({model.device}): {batches} batches of {CLI_BATCH}, {ms_batch:.1f} ms/batch "
+          f"(validation included; {main_s:.2f} s for the whole command){layers}; val acc "
+          f"{val_acc[-1]:.4f}, test acc {test_acc:.4f}; kernel launches {sum(launched.values())}; "
+          f"Predictor.from_checkpoint ({from_file.device}) scores {len(x_fresh)} fresh requests "
+          f"as the model in memory bit for bit: {same}; load_any_checkpoint gives "
+          f"{type(loaded).__name__} on {loaded.device}")
+    if sum(launched.values()):
+        fail(f"the {trainer} CLI launched kernels: {launched}")
+    if not isinstance(model, BoundaryMPS) or model.device.type != "cuda" or model.M != M or not (
+            torch.isfinite(model.sites).all() and torch.isfinite(model.w).all()):
+        fail(f"the {trainer} CLI's model is not a finite M={M} BoundaryMPS on the card")
+    if trainer == "brickwall" and seen["layers"] != 2 * batches:
+        fail(f"the brick-wall CLI ran {seen['layers']} layers in {batches} batches")
+    if not same or from_file.device.type != "cuda" or from_file.use_kernel:
+        fail(f"the {trainer} model does not reload to the same scores on the card")
+    if not isinstance(loaded, BoundaryMPS) or loaded.device.type != "cuda":
+        fail(f"load_any_checkpoint gave {type(loaded).__name__} on {loaded.device}")
+    return {"model": model, "ms_per_batch": ms_batch, "val_acc": val_acc[-1],
+            "test_acc": test_acc, "batches": batches}
+
+
+def boundary_init(n_sites, m, x_cal):
+    return cli_mnist.initial_boundary(SEED, n_sites, m, "linear", "MSE", x_cal, DEVICE)
+
+
+def as_f64(model: BoundaryMPS) -> BoundaryMPS:
+    return model.replace(sites=model.sites.double(), w=model.w.double())
+
+
+def hold_f64(phase, what, sweep, model, phi, y1h, x_fresh, tol, f32_ridge=False) -> dict:
+    """``sweep(model, phi, y1h)`` in float32 against a float64 run of it, on
+    ``x_fresh``'s scores relative to max|f|; beside it the float32 and float64
+    runs on the model with ``w`` rescaled by 1 + RF_PERTURB (the rounding
+    floors) and how far the sweep moves the function. With ``f32_ridge`` the
+    float64 run takes the float32 path's Cholesky ridge."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    a = sweep(model, phi, y1h)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    ridge = svd_mod._cholqr_eps
+    with (mock.patch.object(svd_mod, "_cholqr_eps", lambda dtype, q: ridge(torch.float32, q))
+          if f32_ridge else contextlib.nullcontext()):
+        b = sweep(as_f64(model), phi.double(), y1h.double())
+        d = sweep(as_f64(model).replace(w=model.w.double() * (1 + RF_PERTURB)), phi.double(),
+                  y1h.double())
+    c = sweep(model.replace(w=model.w * (1 + RF_PERTURB)), phi, y1h)
+    pf = psi_embed(x_fresh)
+    fa, fc = boundary_forward(a, pf), boundary_forward(c, pf)
+    fb, fd = boundary_forward(b, pf.double()), boundary_forward(d, pf.double())
+    gap, moved = rel_gap(fa, fb), rel_gap(boundary_forward(model, pf), fb)
+    extra = ""
+    if f32_ridge:
+        own = sweep(as_f64(model), phi.double(), y1h.double())
+        extra = (f"; against a float64 run with its own ridge "
+                 f"{rel_gap(fa, boundary_forward(own, pf.double())):.3g} (printed, not held)")
+    ok = gap <= tol and bool(torch.isfinite(fa).all()) and a.device.type == phi.device.type
+    print(f"[{phase}] {what}: float32 sweep {ms:.1f} ms; against its float64 run {gap:.3g} of max|f| "
+          f"(limit {tol:g}) {'ok' if ok else 'FAIL'}; float32 vs float32 on w x (1 + "
+          f"{RF_PERTURB:g}) {rel_gap(fc, fa):.3g}, float64 vs float64 {rel_gap(fd, fb):.3g}; the "
+          f"sweep moves f by {moved:.3g} of max|f|{extra}; kernel launches "
+          f"{sum(launched.values())}")
+    if sum(launched.values()):
+        fail(f"{what}: the sweep launched kernels: {launched}")
+    if not ok:
+        fail(f"{what}: the float32 sweep is {gap:.3g} of max|f| from its float64 run")
+    return {"ms": ms, "gap": gap, "model": a}
+
+
+def card_batch(x: np.ndarray, y: np.ndarray):
+    xb = torch.as_tensor(x, device=DEVICE)
+    return psi_embed(xb), one_hot_labels(torch.as_tensor(y, device=DEVICE), L, torch.float32)
+
+
+def phase_brickwall(x_tr, y_tr, x_fresh) -> dict:
+    """[brickwall]: the CLI, then one flagship brick sweep (cholqr, the CLI's
+    rate) held against its float64 run, and its device profile."""
+    cli = phase_boundary_cli("brickwall", x_fresh)
+    model = boundary_init(N, M, x_tr[:BATCH])
+    phi, y1h = card_batch(x_tr[:CLI_BATCH], y_tr[:CLI_BATCH])
+    cfg = brick_mod.BrickConfig(split_method="cholqr")
+
+    def sweep(m, p, y):
+        return brick_mod.brick_sweep(m, p, y, BRICK_LR, WD, cfg)[0]
+
+    seen = {"layers": 0}
+    with finite_layers(seen):
+        held = hold_f64("brickwall", f"brick sweep N={N} M={M} B={CLI_BATCH} K={N // 2}", sweep,
+                        model, phi, y1h, x_fresh, BRICK_F64_TOL, f32_ridge=True)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(model, phi, y1h)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    idle = profile_line(f"brick sweep N={N} M={M} B={CLI_BATCH}", lambda: sweep(model, phi, y1h),
+                        ms)
+    print(f"[brickwall] brick sweep at the flagship: {ms:.1f} ms (median of "
+          f"{', '.join(f'{t:.1f}' for t in times)}), {CLI_BATCH / ms * 1e3:.0f} samples/s")
+    return {**cli, "sweep_ms": ms, "idle": idle, "gap": held["gap"]}
+
+
+def phase_onesite(x_tr, y_tr, x_fresh) -> dict:
+    """[onesite]: the CLI, a flagship one-site sweep's time and profile, then
+    one sweep at N=784, M=16 with renorm (example 04's long chain) held
+    against its float64 run."""
+    cli = phase_boundary_cli("onesite", x_fresh)
+    model = boundary_init(N, M, x_tr[:BATCH])
+    phi, y1h = card_batch(x_tr[:CLI_BATCH], y_tr[:CLI_BATCH])
+    cfg = onesite_mod.OneSiteConfig()
+
+    def flagship(left):
+        return onesite_mod.onesite_sweep(model, phi, y1h, 0.2, WD, left, cfg)
+
+    times = []
+    for left in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flagship(left)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    idle = profile_line(f"one-site sweep N={N} M={M} B={CLI_BATCH}", lambda: flagship(False), ms)
+    print(f"[onesite] one-site sweep at the flagship (right, left, right, left): "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms, {CLI_BATCH / ms * 1e3:.0f} samples/s")
+
+    imgs, labels, _, _ = synthetic_mnist(n_train=2 * CLI_BATCH + BATCH, n_test=0, seed=SEED + 5)
+    x_full = (imgs / 255.0).reshape(len(imgs), -1).astype(np.float32)
+    if x_full.shape[1] != ONESITE_LONG_N:
+        fail(f"full-resolution images have {x_full.shape[1]} pixels")
+    long_model = boundary_init(ONESITE_LONG_N, ONESITE_LONG_M, x_full[:BATCH])
+    phi_l, y1h_l = card_batch(x_full[:CLI_BATCH], labels[:CLI_BATCH].astype(np.int64))
+    long_cfg = onesite_mod.OneSiteConfig(renorm=True)
+
+    def sweep(m, p, y):
+        return onesite_mod.onesite_sweep(m, p, y, ONESITE_LONG_LR, WD, False, long_cfg)[0]
+
+    held = hold_f64("onesite", f"one-site sweep N={ONESITE_LONG_N} M={ONESITE_LONG_M} "
+                    f"B={CLI_BATCH} renorm",
+                    sweep, long_model, phi_l, y1h_l,
+                    torch.as_tensor(x_full[CLI_BATCH:CLI_BATCH + BATCH], device=DEVICE),
+                    ONESITE_F64_TOL)
+    return {**cli, "sweep_ms": ms, "idle": idle, "long_ms": held["ms"], "gap": held["gap"]}
+
+
+def phase_autodiff(mps, brick_model, x_tr, y_tr) -> dict:
+    """[autodiff]: AD_STEPS Adam steps of AutodiffTrainer on the flagship MPS,
+    the first held against a float64 run of it; one BoundaryAutodiffTrainer
+    step on the brick-wall CLI's model; one ring_trainer step at the
+    flagship's width. No kernel launches (the chain kernel has no backward)."""
+    cfg = AutodiffConfig(loss="softmax_xent", optimizer="adam", learning_rate=AD_LR)
+    batches = [(x_tr[i * BATCH:(i + 1) * BATCH], y_tr[i * BATCH:(i + 1) * BATCH])
+               for i in range(AD_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    trainer = AutodiffTrainer(mps, cfg)
+    losses, times = [], []
+    for i, (x, y) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step(x, y)[0])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = [p.detach().clone() for p in trainer.params]
+            grads = [p.grad.detach().clone() for p in trainer.params]
+    t64 = AutodiffTrainer(mps.replace(sites=mps.sites.double(),
+                                      label_site=mps.label_site.double()), cfg)
+    loss64 = t64.step(*batches[0])[0]
+    loss_gap = abs(losses[0] - loss64) / abs(loss64)
+    grad_gap = max(rel_gap(g, p.grad) for g, p in zip(grads, t64.params))
+    param_gap = max(rel_gap(a, b) for a, b in zip(first, t64.params))
+    moved = rel_gap(t64.params[0], mps.sites.double())
+    ok = (loss_gap <= AD_LOSS_TOL and grad_gap <= AD_GRAD_TOL and param_gap <= AD_PARAM_TOL
+          and np.isfinite(losses).all() and trainer.params[0].device.type == "cuda")
+    print(f"[autodiff] AutodiffTrainer (softmax_xent, Adam, lr {AD_LR:g}) N={N} M={M} B={BATCH} on "
+          f"{trainer.params[0].device}: {AD_STEPS} steps "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms, losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}; the first step against its float64 run: "
+          f"loss {loss_gap:.3g} (limit {AD_LOSS_TOL:g}), gradients {grad_gap:.3g} of their max "
+          f"(limit {AD_GRAD_TOL:g}), updated tensors {param_gap:.3g} of their max (limit "
+          f"{AD_PARAM_TOL:g}; the step moves the sites by {moved:.3g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the autodiff step on the card disagrees with its float64 run")
+
+    bt = BoundaryAutodiffTrainer(brick_model, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b_loss = bt.step(*batches[0])[0]
+    torch.cuda.synchronize()
+    b_ms = (time.perf_counter() - t0) * 1e3
+    ring = ring_product_init(torch.Generator().manual_seed(SEED), N=N, M=M, D=D, L=L,
+                             calibration_x=x_tr[:BATCH])  # the default device: the card
+    rt = ring_trainer(ring, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_loss = rt.step(*batches[0])[0]
+    torch.cuda.synchronize()
+    r_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    finite = all(bool(torch.isfinite(p).all()) for p in bt.params + rt.params)
+    print(f"[autodiff] BoundaryAutodiffTrainer step on the brick-wall model: loss {b_loss:.5f}, "
+          f"{b_ms:.1f} ms; ring_trainer step (N={N} M={M}, ring_product_init on "
+          f"{ring.device}): loss {r_loss:.5f}, {r_ms:.1f} ms; parameters finite: {finite}; "
+          f"kernel launches {sum(launched.values())}")
+    if (sum(launched.values()) or not finite or not np.isfinite([b_loss, r_loss]).all()
+            or ring.device.type != "cuda" or bt.params[0].device.type != "cuda"):
+        fail(f"the boundary or ring autodiff step failed (launches {launched})")
+    return {"step_ms": float(np.median(times)), "boundary_ms": b_ms, "ring_ms": r_ms}
+
+
+def phase_ensemble(task) -> dict:
+    """[ensemble]: ensemble_init on the teacher task, ENS_STEPS Adam steps on
+    the card; to_direct_sum served by Predictor through K3 at M = L * ENS_M,
+    held against ensemble_forward and K3 against its plain version; probe_init
+    on the same task, its argmax the probe's exactly."""
+    tr_x, tr_y, te_x, te_y = task
+    ens = ensemble_mod.ensemble_init(torch.Generator().manual_seed(SEED), N=N, m=ENS_M, L=L,
+                                     calibration_x=tr_x[:BATCH])  # the default device
+    if ens.device.type != "cuda":
+        fail(f"ensemble_init placed the ensemble on {ens.device}")
+    leaves = {k: getattr(ens, k).clone().requires_grad_(True)
+              for k in ("sites", "label_site", "head_a")}  # head_b stays 0
+    opt = torch.optim.Adam(list(leaves.values()), lr=ENS_LR)
+    phi_tr = psi_embed(torch.as_tensor(tr_x, device=DEVICE, dtype=torch.float32))
+    y_tr = torch.as_tensor(tr_y, device=DEVICE).long()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for step in range(ENS_STEPS):
+        lo = (step * ENS_BATCH) % (len(tr_x) - ENS_BATCH + 1)
+        f = ensemble_mod.ensemble_forward(ens.replace(**leaves), phi_tr[lo:lo + ENS_BATCH])
+        loss = torch.nn.functional.cross_entropy(f.T, y_tr[lo:lo + ENS_BATCH])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ENS_STEPS
+    train_launched = counts()
+    trained = ens.replace(**{k: v.detach() for k, v in leaves.items()})
+    phi_te = psi_embed(torch.as_tensor(te_x, device=DEVICE, dtype=torch.float32))
+    y_te = torch.as_tensor(te_y, device=DEVICE).long()
+    acc = float(ensemble_mod.ensemble_accuracy(trained, phi_te, y_te))
+    print(f"[ensemble] ensemble_init N={N} L={L} m={ENS_M} on {ens.device}, {ENS_STEPS} Adam "
+          f"steps (lr {ENS_LR:g}, B={ENS_BATCH}) on the teacher task: {step_ms:.1f} ms a step, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, test acc {acc:.4f}; kernel launches "
+          f"{sum(train_launched.values())}")
+    if sum(train_launched.values()) or not np.isfinite(losses).all():
+        fail(f"the ensemble's training launched {train_launched} or went non-finite")
+
+    mono = ensemble_mod.to_direct_sum(trained)
+    m_sum = mono.M
+    pred = Predictor(mono)  # the default device: the card, through K3
+    if mono.device.type != "cuda" or m_sum != L * ENS_M or not pred.use_kernel:
+        fail(f"the direct sum (M={m_sum}) is not served on the card through the kernel")
+    reset_counts()
+    served = pred.scores(te_x)
+    launched = counts()
+    want = -(-len(te_x) // BATCH)
+    f_ens = ensemble_mod.ensemble_forward(trained, phi_te).T.cpu().numpy()
+    err = float(np.abs(served - f_ens).max())
+    tol = TOL * float(np.abs(f_ens).max())
+    ok = (launched["right_env_chain"] == want and sum(launched.values()) == want
+          and served.shape == (len(te_x), L) and err <= tol)
+    print(f"[ensemble] to_direct_sum: an MPS with M={m_sum} on {mono.device}; Predictor at batch "
+          f"{BATCH} ({chain_form(m_sum, BATCH)}) scores the {len(te_x)} test samples through K3: "
+          f"launches {launched['right_env_chain']} (want {want}); against ensemble_forward "
+          f"{err:.3g} (limit {tol:.3g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the direct sum served through K3 disagrees or launched {launched}")
+    sites = mono.sites[1:].contiguous()
+    x = torch.as_tensor(te_x[:BATCH], device=DEVICE, dtype=torch.float32)[:, 1:].contiguous()
+    k3_err = compare_chain(f"ensemble direct sum n={N - 1} M={m_sum} B={BATCH}", sites, x)
+    k_ms, p_ms, _ = turns(f"right_env_chain M={m_sum} B={BATCH} ({chain_form(m_sum, BATCH)})",
+                          lambda: env_scan.right_env_chain(sites, x),
+                          lambda: env_scan.right_env_chain_reference(sites, x))
+
+    W, probe_acc = fit_linear_probe(tr_x, tr_y, L)
+    pmps, _ = probe_init(tr_x, tr_y, M=L + 1, L=L, dtype=torch.float64)  # the default device
+    f = mps_forward(pmps, psi_embed(torch.as_tensor(te_x, device=DEVICE, dtype=torch.float64)))
+    same = bool(np.array_equal(f.argmax(0).cpu().numpy(), probe_scores(W, te_x).argmax(0)))
+    print(f"[ensemble] probe_init M={L + 1} (float64, l_pos={pmps.l_pos}) on {pmps.device}: the "
+          f"MPS's argmax equals the probe's on all {len(te_x)} test samples: {same} (probe "
+          f"train acc {probe_acc:.4f})")
+    if not same or pmps.device.type != "cuda":
+        fail("probe_init's argmax differs from the probe's")
+    return {"launches": launched["right_env_chain"], "err": k3_err, "ms": (k_ms, p_ms, None),
+            "M": m_sum, "step_ms": step_ms, "test_acc": acc}
+
+
 T_START = time.perf_counter()
 OTHER_CSRC = None  # --other-csrc: a csrc directory whose kernels are timed beside these
 
@@ -2706,6 +3175,14 @@ def main() -> None:
     ms.update(phase_large_timing(big, large, captured, xb, yb))
     ms.update(phase_wide_timing(wide, xb, yb, wide_cap))
 
+    brick = phase_brickwall(x_tr, y_tr, x_fresh)
+    onesite = phase_onesite(x_tr, y_tr, x_fresh)
+    autodiff = phase_autodiff(mps, brick["model"], x_tr, y_tr)
+    ensemble = phase_ensemble(teacher["task"])
+    ens_key = ("right_env_chain", BATCH, ensemble["M"])
+    launches[ens_key], errs[ens_key], ms[ens_key] = (
+        ensemble["launches"], ensemble["err"], ensemble["ms"])
+
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
     I_big, J_big = large["bmat"].shape
@@ -2723,6 +3200,7 @@ def main() -> None:
         ("polar_split", M_WIDE): polar_split_work(M_WIDE * D, L * D * M_WIDE, M_WIDE, pe),
     }
     work[("polar_sketch_gram", M_LARGE)] = sketch_work(I_big, J_big, M_LARGE, True)
+    work[ens_key] = chain_work(N - 1, ensemble["M"], BATCH)
     work[("polar_iterate", M_WIDE)] = polar_work(M_WIDE * D, M_WIDE, *pe)
     work[("two_site_presplit", M_WIDE)] = presplit_work(L, M_WIDE * D, M_WIDE, D * M_WIDE, BATCH,
                                                         M_WIDE)
@@ -2742,7 +3220,8 @@ def main() -> None:
     for name, (flops, nbytes) in work.items():
         b_ms, b_by = bound_ms(flops, nbytes)
         label = (name if isinstance(name, str) else
-                 f"{name[0]} B={name[1]}" if name[0] == "right_env_chain" else
+                 f"{name[0]} B={name[1]}" + (f" M={name[2]}" if len(name) > 2 else "")
+                 if name[0] == "right_env_chain" else
                  f"{name[0]} M={name[1]}")
         line = (f"[bound] {label}: {flops:.3g} FLOP, {nbytes:.3g} bytes -> f32 bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}) at {F32_FLOPS / 1e12:g} TFLOP/s and "
@@ -2761,6 +3240,8 @@ def main() -> None:
          ("right_env_chain", BATCH)),
         ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
          ("right_env_chain", BIG)),
+        ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
+         ens_key),
         ("polar_iterate", "polar_iterate.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:566", "polar_iterate"),
         ("polar_iterate", "polar_iterate.cu",
@@ -2804,11 +3285,12 @@ def main() -> None:
             "library_ms": ms[key][2],
         }
         if name == "right_env_chain":
-            row["shape"] = f"n={N - 1} M={M} B={key[1]}"
-            row["form"] = chain_form(M, key[1])
+            m_chain = key[2] if len(key) > 2 else M  # the ensemble's direct sum at M = 80
+            row["shape"] = f"n={N - 1} M={m_chain} B={key[1]}"
+            row["form"] = chain_form(m_chain, key[1])
             # this K3 beside the other build's, timed in turns, where --other-csrc
-            # named one
-            row["parent_ms"] = ms.get(("parent", key[1]))
+            # named one (at the flagship's M)
+            row["parent_ms"] = ms.get(("parent", key[1])) if m_chain == M else None
         elif ("parent", key) in ms:  # the other build's, timed in turns
             row["parent_ms"] = ms[("parent", key)]
         if name == "two_site_step":  # at M=256 B=64 (K1 at I = 512 inside)
@@ -2842,7 +3324,14 @@ def main() -> None:
           f"{teacher['cpu_s']:.3f} s on the CPU, its student {teacher['ms_per_batch']:.1f} "
           f"ms/batch, test acc {teacher['test_acc']:.4f}; training_mnist CLI "
           f"{cli['ms_per_batch']:.1f} ms/batch at B={CLI_BATCH}, val acc {cli['val_acc']:.4f}, "
-          f"test acc {cli['test_acc']:.4f}; {time.perf_counter() - T_START:.1f} s in all")
+          f"test acc {cli['test_acc']:.4f}; brick-wall CLI {brick['ms_per_batch']:.1f} ms/batch "
+          f"(val {brick['val_acc']:.4f}, test {brick['test_acc']:.4f}), brick sweep "
+          f"{brick['sweep_ms']:.1f} ms; one-site CLI {onesite['ms_per_batch']:.1f} ms/batch (val "
+          f"{onesite['val_acc']:.4f}, test {onesite['test_acc']:.4f}), one-site sweep "
+          f"{onesite['sweep_ms']:.1f} ms, at N={ONESITE_LONG_N} M={ONESITE_LONG_M} "
+          f"{onesite['long_ms']:.1f} ms; autodiff step {autodiff['step_ms']:.1f} ms; ensemble "
+          f"step {ensemble['step_ms']:.1f} ms, test acc {ensemble['test_acc']:.4f}; "
+          f"{time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

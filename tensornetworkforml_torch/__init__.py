@@ -13,8 +13,10 @@ data layer (MNIST and CIFAR-10 readers with their checksums, the native host
 library, the loaders and the teacher task), ``Predictor`` with its chain
 kernel, the two-site sweep, epoch and ``train_model`` with the
 polar-iteration, pre-split, streaming-reduction and rangefinder kernels, the
-named-axis ``Tensor`` with the reference-compatible ``Network`` facade, and
-the command-line tools (``cli/``). The entry points run on the card unless
+named-axis ``Tensor`` with the reference-compatible ``Network`` facade, the
+command-line tools (``cli/``), and the off-path trainers: the boundary-label
+family with its one-site and brick-wall trainers, the autodiff trainers with
+the ring topology, the linear-probe init and the ensemble of chains. The entry points run on the card unless
 given ``device="cpu"`` (``--device cpu`` for the tools). ROADMAP.md lists what
 is not ported yet.
 """

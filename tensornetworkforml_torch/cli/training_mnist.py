@@ -10,9 +10,11 @@ deterministic stand-in, ``--dataset cifar10`` reads the CIFAR-10 binary
 batches as grayscale. Trains on the CUDA card unless given ``--device cpu``.
 
 The flags, defaults and derived defaults are the JAX package's
-``cli/training_mnist.py``, plus ``--device``. Only ``--trainer twosite`` is
-ported: ``onesite`` and ``brickwall`` (ROADMAP queue 1 item 10) and ``--dp``
-(item 11) raise ``NotImplementedError`` before any data is loaded.
+``cli/training_mnist.py``, plus ``--device``. ``--trainer onesite`` and
+``--trainer brickwall`` train the boundary-label family
+(``train/onesite.py``, ``train/brickwall.py``) and save it with
+``save_boundary_checkpoint``. ``--dp`` (ROADMAP queue 1 item 11) raises
+``NotImplementedError`` before any data is loaded.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from tensornetworkforml_torch.cli.common import add_device_flag
+from tensornetworkforml_torch.models.boundary import BoundaryMPS, boundary_product_init
 from tensornetworkforml_torch.models.mps import MPS, product_init
 
 
@@ -101,8 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "bond dimension >= 64")
     p.add_argument("--trainer", type=str, default="twosite",
                    choices=["twosite", "onesite", "brickwall"],
-                   help="twosite is ported; onesite and brickwall are not "
-                        "yet (ROADMAP queue 1 item 10)")
+                   help="onesite: boundary-label sweeps whose center moves "
+                        "by exact QR, no truncated split; brickwall: all "
+                        "two-site pair updates of a layer batched "
+                        "(train/brickwall.py), O(1) update depth per sweep "
+                        "instead of N-1 sequential steps")
     add_device_flag(p)
     return p
 
@@ -118,11 +124,61 @@ def initial_mps(seed: int, N: int, M: int, act_fn: str, loss_fn: str,
     )
 
 
+def initial_boundary(seed: int, N: int, M: int, act_fn: str, loss_fn: str,
+                     x_cal: np.ndarray, device) -> BoundaryMPS:
+    """The boundary-label trainers' initial model: ``boundary_product_init``
+    from a CPU generator, so a seed gives the same model on the CPU and on
+    the card."""
+    return boundary_product_init(
+        torch.Generator().manual_seed(seed), N=N, M=M, L=10, act_fn=act_fn,
+        loss_fn=loss_fn, dtype=torch.float32, calibration_x=x_cal, device=device,
+    )
+
+
+def train_boundary(args, N, long_chain, bond_schedule, x_cal, loaders, device):
+    """``--trainer onesite|brickwall``: the boundary-label branch of the JAX
+    package's CLI, with its rates. Returns ``(val_acc, test_acc)``."""
+    from tensornetworkforml_torch.train.onesite import boundary_accuracy, train_boundary_model
+    from tensornetworkforml_torch.utils.checkpoint import save_boundary_checkpoint
+
+    train_loader, val_loader, test_loader = loaders
+    model = initial_boundary(args.seed, N, args.M, args.act_fn, args.loss_fn, x_cal, device)
+    if args.trainer == "brickwall":
+        from tensornetworkforml_torch.train.brickwall import BrickConfig, train_brickwall
+
+        # a brick layer takes K = N/2 simultaneous clipped lr-relative pair
+        # steps with one stale output (block-Jacobi), so the stable rate needs
+        # lr * K <~ 0.25
+        base_lr = args.lr if args.lr is not None else min(0.02, 0.5 / N)
+        bcfg = BrickConfig(act_fn=args.act_fn, loss_fn=args.loss_fn,
+                           split_method=args.svd_method)
+        model, val_acc = train_brickwall(
+            model, train_loader, val_loader, lr=base_lr, n_epochs=args.n_epochs,
+            weight_dec=args.weight_dec, verbose=True, bond_schedule=bond_schedule,
+            checkpoint_path=args.checkpoint, resume=args.resume, cfg=bcfg,
+        )
+    else:
+        base_lr = args.lr if args.lr is not None else (0.05 if long_chain else 0.2)
+        # a per-sweep geometric decay holds the fit once reached on long chains
+        decay = 0.3 ** (1.0 / 15.0) if long_chain else 1.0
+        model, val_acc = train_boundary_model(
+            model, train_loader, val_loader, lr=base_lr, n_epochs=args.n_epochs,
+            weight_dec=args.weight_dec, lr_sweep_decay=decay, verbose=True,
+            checkpoint_path=args.checkpoint, resume=args.resume,
+        )
+    test_acc = boundary_accuracy(model, test_loader)
+    print(f"\nTest accuracy: {test_acc:.4f}")
+    save_boundary_checkpoint(model, args.out)
+    print(f"Model saved to {args.out}")
+    return val_acc, test_acc
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.trainer != "twosite":
-        raise NotImplementedError(
-            f"--trainer {args.trainer} is not ported yet (ROADMAP queue 1 item 10)"
+    if args.trainer == "brickwall" and args.svd_method not in ("cholqr", "rangefinder"):
+        raise SystemExit(
+            "--trainer brickwall supports --svd_method cholqr or "
+            f"rangefinder (got {args.svd_method!r})"
         )
     if args.dp:
         raise NotImplementedError(
@@ -204,6 +260,9 @@ def main(argv=None):
         growth_cap = growth_cap or 0.002
 
     x_cal, _ = next(train_loader.batches())
+    if args.trainer in ("onesite", "brickwall"):
+        return train_boundary(args, N, long_chain, bond_schedule, x_cal[:256],
+                              (train_loader, val_loader, test_loader), device)
     mps = initial_mps(args.seed, N, args.M, args.act_fn, args.loss_fn, x_cal[:256], device)
 
     lr_arg = lr if lr_decay == 1.0 else (lambda e, _lr=lr, _d=lr_decay: _lr * _d ** e)

@@ -3,7 +3,9 @@
 Raw pixels in, class scores and labels out, with the psi embedding on the
 device. Requests of any size are cut into chunks of ``batch_size``; the last
 chunk is padded with zero rows on the device, so every launch sees the same
-batch shape.
+batch shape. Both model families are served: the traveling-label ``MPS``
+and the boundary-label ``BoundaryMPS`` (the one-site and brick-wall
+trainers' family).
 """
 
 from __future__ import annotations
@@ -14,23 +16,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tensornetworkforml_torch.models.boundary import BoundaryMPS, boundary_forward_arrays
 from tensornetworkforml_torch.models.mps import MPS, apply_act_fn, mps_forward, resolve_device
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels.env_scan import forward_scores
 
 
 class Predictor:
-    """Fixed-batch predictor for a traveling-label ``MPS`` on one device.
+    """Fixed-batch predictor for an ``MPS`` or a ``BoundaryMPS`` on one device.
 
     The model is served on ``device``; ``None`` is the card
     (``resolve_device``), and a machine without one passes ``"cpu"``.
     ``use_kernel`` selects the fused embed + chain kernel
-    (``ops/kernels/env_scan.py``); by default it is on exactly when the
-    device is a CUDA device, D == 2 and the label leg sits at site 0.
-    Otherwise the plain forward (``mps_forward``) serves. ``use_pallas`` is
-    the JAX package's name for ``use_kernel``, as argument and attribute,
-    with the same meaning; passing both with different values raises
-    ``ValueError``.
+    (``ops/kernels/env_scan.py``); for an ``MPS`` it is on by default exactly
+    when the device is a CUDA device, D == 2 and the label leg sits at site 0.
+    Otherwise the plain forward (``mps_forward``) serves. A ``BoundaryMPS``
+    is served by the plain ``boundary_forward_arrays``: there is no kernel
+    for that family, and ``use_kernel=True`` raises ``ValueError``, as the
+    JAX package's ``use_pallas=True`` does. ``use_pallas`` is the JAX
+    package's name for ``use_kernel``, as argument and attribute, with the
+    same meaning; passing both with different values raises ``ValueError``.
     """
 
     def __init__(
@@ -55,18 +60,23 @@ class Predictor:
                 "mesh (batch-sharded) serving is not ported yet "
                 "(ROADMAP queue 1 item 11)"
             )
-        if not isinstance(mps, MPS):
-            raise NotImplementedError(
-                f"Predictor serves the traveling-label MPS; {type(mps).__name__} "
-                "(the boundary-label family) is not ported yet "
-                "(ROADMAP queue 1 item 10)"
-            )
         self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.activation = activation
+        self._is_boundary = isinstance(mps, BoundaryMPS)
+        if self._is_boundary:
+            if use_kernel:
+                raise ValueError(
+                    "use_kernel=True (use_pallas=True) is not supported for the "
+                    "boundary-label family (the fused kernel serves the traveling-"
+                    "label MPS only); omit it or pass use_kernel=False"
+                )
+            self.mps = mps.replace(sites=mps.sites.to(self.device), w=mps.w.to(self.device))
+            self.use_kernel = False
+            return
         self.mps = mps.replace(
             sites=mps.sites.to(self.device), label_site=mps.label_site.to(self.device)
         )
-        self.batch_size = int(batch_size)
-        self.activation = activation
         if use_kernel is None:
             use_kernel = (
                 self.device.type == "cuda" and self.mps.D == 2 and self.mps.l_pos == 0
@@ -80,7 +90,8 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, device=None, **kwargs) -> "Predictor":
-        """Serve an ``.npz`` checkpoint (float32) on ``device`` (``None``: the card)."""
+        """Serve an ``.npz`` checkpoint of either family (float32) on ``device``
+        (``None``: the card)."""
         from tensornetworkforml_torch.utils.checkpoint import load_any_checkpoint
 
         if path.endswith(".dat"):
@@ -100,7 +111,9 @@ class Predictor:
             torch.cuda.synchronize(self.device)
 
     def _chunk_scores(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_kernel:
+        if self._is_boundary:
+            f = boundary_forward_arrays(self.mps.sites, self.mps.w, psi_embed(x))
+        elif self.use_kernel:
             f = forward_scores(self.mps, x)
         else:
             f = mps_forward(self.mps, psi_embed(x))

@@ -15,6 +15,21 @@ from tensornetworkforml_torch.train.trainer import (
     stall_detected,
     train_model,
 )
+from tensornetworkforml_torch.train.autodiff import (
+    AutodiffConfig,
+    AutodiffTrainer,
+    BoundaryAutodiffTrainer,
+)
+from tensornetworkforml_torch.train.onesite import (
+    OneSiteConfig,
+    onesite_sweep,
+    train_boundary_model,
+)
+from tensornetworkforml_torch.train.brickwall import (
+    BrickConfig,
+    brick_sweep,
+    train_brickwall,
+)
 
 __all__ = [
     "SweepConfig",
@@ -28,4 +43,13 @@ __all__ = [
     "evaluate_accuracy",
     "stall_detected",
     "train_model",
+    "AutodiffConfig",
+    "AutodiffTrainer",
+    "BoundaryAutodiffTrainer",
+    "OneSiteConfig",
+    "onesite_sweep",
+    "train_boundary_model",
+    "BrickConfig",
+    "brick_sweep",
+    "train_brickwall",
 ]

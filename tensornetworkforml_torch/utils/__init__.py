@@ -5,6 +5,11 @@ from tensornetworkforml_torch.utils.checkpoint import (
     load_training_state,
     load_any_checkpoint,
     mps_from_numpy,
+    boundary_from_numpy,
+    save_boundary_checkpoint,
+    load_boundary_checkpoint,
+    save_boundary_training_state,
+    load_boundary_training_state,
 )
 
 __all__ = [
@@ -14,4 +19,9 @@ __all__ = [
     "load_training_state",
     "load_any_checkpoint",
     "mps_from_numpy",
+    "boundary_from_numpy",
+    "save_boundary_checkpoint",
+    "load_boundary_checkpoint",
+    "save_boundary_training_state",
+    "load_boundary_training_state",
 ]

@@ -87,14 +87,21 @@ def test_training_state_round_trips_both_ways(tmp_path):
 
 
 def test_boundary_checkpoint_is_not_ported(tmp_path):
+    """A boundary-label checkpoint written by the JAX package: since the
+    family was ported (ROADMAP queue 1 item 10) ``load_any_checkpoint``
+    returns a ``BoundaryMPS`` with its arrays, where it used to raise."""
+    from tensornetworkforml_torch.models.boundary import BoundaryMPS
+
     rng = np.random.default_rng(2)
     fake = types.SimpleNamespace(
-        sites=rng.standard_normal((N, M, D, M)), w=rng.standard_normal((L, M)),
+        sites=rng.standard_normal((N, M, D, M)), w=rng.standard_normal((M, L)),
         act_fn="linear", loss_fn="MSE", T=0.1,
     )
     jck.save_boundary_checkpoint(fake, str(tmp_path / "b.npz"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tck.load_any_checkpoint(str(tmp_path / "b.npz"))
+    t = tck.load_any_checkpoint(str(tmp_path / "b.npz"), device="cpu")
+    assert isinstance(t, BoundaryMPS) and (t.act_fn, t.loss_fn, t.T) == ("linear", "MSE", 0.1)
+    np.testing.assert_array_equal(t.sites.numpy(), fake.sites)
+    np.testing.assert_array_equal(t.w.numpy(), fake.w)
 
 
 def test_archive_without_meta_is_rejected(tmp_path):

@@ -14,9 +14,15 @@ on the CPU (``--device cpu``).
 * ``training_mnist`` with the JAX package's initial MPS handed over
   (``initial_mps`` patched) ends within 0.05 of the JAX CLI's validation
   and test accuracy.
-* ``--trainer onesite``/``brickwall`` and ``--dp`` raise
-  ``NotImplementedError`` naming their items before any data is loaded,
-  and without a card the default device raises.
+* ``--trainer brickwall`` and ``--trainer onesite`` with the JAX package's
+  initial boundary-label model handed over (``initial_boundary`` patched,
+  and the JAX package's sketch matrix for the CholQR splits) end within 0.05
+  of the JAX CLI's validation and test accuracy, and save a boundary
+  checkpoint.
+* ``--dp`` raises ``NotImplementedError`` naming its item, and
+  ``--trainer brickwall`` with a split other than cholqr or rangefinder
+  exits, both before any data is loaded; without a card the default device
+  raises.
 """
 
 import argparse
@@ -217,15 +223,56 @@ def test_training_mnist_from_the_jax_init_matches_the_jax_cli(tmp_path, monkeypa
     assert abs(val[-1] - jval[-1]) <= ACC_TOL and abs(test - jtest) <= ACC_TOL
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--trainer", "onesite"], "item 10"),
-    (["--trainer", "brickwall"], "item 10"),
-    (["--dp"], "item 11"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--trainer", "brickwall", "--svd_method", "polar"], SystemExit, "cholqr or rangefinder"),
+    (["--trainer", "brickwall", "--svd_method", "svd"], SystemExit, "cholqr or rangefinder"),
+    (["--dp"], NotImplementedError, "item 11"),
 ])
-def test_unported_flags_raise_before_loading_data(flags, item, tmp_path):
+def test_unported_flags_raise_before_loading_data(flags, error, match, tmp_path):
     # no --synthetic and no data: loading anything would raise FileNotFoundError
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         _port("training_mnist").main(flags + ["--data_dir", str(tmp_path / "none")])
+
+
+@pytest.mark.parametrize("trainer", ["brickwall", "onesite"])
+def test_boundary_trainers_from_the_jax_init_match_the_jax_cli(trainer, tmp_path, monkeypatch):
+    """``--trainer brickwall|onesite`` through both CLIs at M=8, the port
+    starting from the JAX package's initial boundary-label model."""
+    import jax
+    import jax.numpy as jnp
+
+    from tensornetworkforml_torch.models.boundary import BoundaryMPS
+    from tensornetworkforml_torch.ops import svd as tsvd
+    from tensornetworkforml_torch.utils.checkpoint import boundary_from_numpy, load_any_checkpoint
+    from tensornetworkforml_tpu.models.boundary import boundary_product_init
+    from tensornetworkforml_tpu.ops.svd import _rangefinder_omega
+
+    tm = _port("training_mnist")
+    draws = []
+
+    def jax_init(seed, N, M, act_fn, loss_fn, x_cal, device):
+        draws.append(seed)
+        j = boundary_product_init(jax.random.PRNGKey(seed), N=N, M=M, L=10, act_fn=act_fn,
+                                  loss_fn=loss_fn, dtype=jnp.float32, calibration_x=x_cal)
+        return boundary_from_numpy(np.asarray(j.sites), np.asarray(j.w), act_fn=j.act_fn,
+                                   loss_fn=j.loss_fn, T=j.T, dtype=torch.float32, device=device)
+
+    def omega(J, q, dtype=torch.float32, device=None):
+        om = np.array(_rangefinder_omega(J, q, jnp.float32))
+        return torch.as_tensor(om).to(dtype=dtype, device=device)
+
+    monkeypatch.setattr(tm, "initial_boundary", jax_init)
+    monkeypatch.setattr(tsvd, "rangefinder_omega", omega)
+    monkeypatch.chdir(tmp_path)
+    args = ["--synthetic", "--pool", "--M", "8", "--n_epochs", "1", "--batch_size", "256",
+            "--seed", "0", "--trainer", trainer]
+    val, test = tm.main(args + ["--out", str(tmp_path / "t.npz"), "--device", "cpu"])
+    jval, jtest = _jax("training_mnist").main(args + ["--out", str(tmp_path / "j.npz")])
+    assert draws == [0] and len(val) == len(jval) == 1
+    assert abs(val[-1] - jval[-1]) <= ACC_TOL and abs(test - jtest) <= ACC_TOL
+    assert test > 0.5, test  # both trainers learn the pooled stand-in in one epoch
+    saved = load_any_checkpoint(str(tmp_path / "t.npz"), device="cpu")
+    assert isinstance(saved, BoundaryMPS) and saved.M == 8
 
 
 def test_default_device_is_the_card(tmp_path):

@@ -108,8 +108,12 @@ def test_unported_inputs_raise_naming_the_roadmap(tmp_path, jax_model):
         Predictor(t, mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         Predictor.from_checkpoint(str(tmp_path / "model.dat"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        Predictor(object())
+    # the boundary-label family is ported (item 10): it is served, not refused
+    from tensornetworkforml_torch.utils.checkpoint import boundary_from_numpy
+
+    rng = np.random.default_rng(1)
+    b = boundary_from_numpy(rng.random((N, M, 2, M)) / M, rng.random((M, L)), device="cpu")
+    assert Predictor(b, batch_size=8, device="cpu").scores(_requests()).shape == (max(SIZES), L)
 
 
 def test_predictor_leaves_the_callers_model_alone(tmp_path):
