@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its data layer, its
-training CLI and its off-path trainers once on an NVIDIA GPU and check them.
+training CLI, its off-path trainers and its mesh path (parallel/) once on an
+NVIDIA GPU and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
@@ -144,13 +145,29 @@ phase trains the same model at M=512. Phases:
                 through K3, held against ensemble_forward, K3 against its plain
                 version and timed at M=80; probe_init's argmax on the same task
                 against the probe's.
+ 20. mesh    -- parallel/ in a world of one on the card (one card; NCCL takes
+                no two ranks on one device): cli/training_mnist.py --dp on its
+                default device (the CLI's own world of one, K1 195 launches a
+                batch); then make_mesh() (NCCL over a HashStore) and, at the
+                flagship's recipe (polar, lr 0.05, weight decay 1e-5), two
+                ShardedTrainer sweeps (K1 2 x 195) held against sweep_once to
+                1e-6 of max, bit for bit or not, with one NCCL all-reduce of
+                the gradient and three metric sums a step (profiled); one
+                dist_split="polar" sweep (K5 and K1 195 launches each: K5's
+                first sweep) held at 2e-2 x max|f| against its float64 run,
+                its step-98 split bit for bit against polar_split_two_stage;
+                K5 on the two column halves of that matrix summed against K5
+                on the whole; fused_epoch(mesh=...) against the unsharded
+                epoch; Predictor(mesh=...) through K3 against the
+                single-device Predictor bit for bit.
 
 Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
 train_model, the teacher task's student, the training CLI, the M=512 training,
 the M=512 gram-free sweep, the boundary-label CLIs and sweeps and the autodiff
 steps, which must launch no kernel, the ensemble's training and its direct
-sum's serving) and read just after it; the comparisons with plain versions happen outside those windows.
+sum's serving, the --dp CLI, the data-parallel and dist-polar sweeps, the mesh
+epoch and mesh serving) and read just after it; the comparisons with plain versions happen outside those windows.
 K4a's, K4b's and K5's bound is 3xTF32's (three tensor-core products per
 float32 one at the TF32 rate), and K8's that of its K5 stage plus K1's float32
 iteration; their rows of the kernels line also give the float32 bound and the
@@ -3099,6 +3116,340 @@ def phase_ensemble(task) -> dict:
             "M": m_sum, "step_ms": step_ms, "test_acc": acc}
 
 
+# ---- phase 20: parallel/ on a mesh (a world of one) --------------------------------
+
+# The mesh phase: a world of one on the card (NCCL over a HashStore: one card,
+# and NCCL takes no two ranks on one device), the flagship's recipe. The
+# data-parallel sweeps must equal sweep_once on the same inputs to MESH_TOL of
+# max (sites, label core and fresh scores): on one rank the all-reduce adds
+# nothing to the gradient and the split is the same code, so they are expected
+# bit for bit, and only the metric means are summed in another order.
+MESH_TOL = 1e-6
+MESH_BATCHES = 2  # a right and a left sweep
+
+
+def phase_mesh_cli() -> dict:
+    """cli/training_mnist.py --dp at the flagship on its default device: a
+    world of one the CLI opens and closes itself; K1's launches per
+    ShardedTrainer.step."""
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.parallel import dp as dp_mod
+
+    seen = {"steps": 0, "seconds": 0.0}
+    real_step = dp_mod.ShardedTrainer.step
+
+    def counted(self, x, y):
+        seen["steps"] += 1
+        seen["device"] = self.mps.device
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = real_step(self, x, y)
+        torch.cuda.synchronize()
+        seen["seconds"] += time.perf_counter() - t0
+        return acc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", "--pool", "--M", str(M), "--svd_method", "polar", "--dp",
+                "--n_epochs", "1", "--batch_size", str(CLI_BATCH), "--restarts", "0",
+                "--out", os.path.join(tmp, "dp.npz")]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(dp_mod.ShardedTrainer, "step", counted):
+            val_acc, test_acc = cli_mnist.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counts()
+        saved = os.path.exists(os.path.join(tmp, "dp.npz"))
+    ok = (launched["polar_iterate"] == seen["steps"] * STEPS and seen["steps"] > 0
+          and sum(launched.values()) == launched["polar_iterate"]
+          and seen["device"].type == "cuda" and saved and not dist.is_initialized())
+    ms_batch = seen["seconds"] / max(seen["steps"], 1) * 1e3
+    print(f"[mesh] training_mnist {' '.join(argv[:-2])} on the default device "
+          f"({seen.get('device')}): {seen['steps']} ShardedTrainer steps of {CLI_BATCH}, "
+          f"{ms_batch:.1f} ms a batch ({seconds:.2f} s for the whole command, data, validation "
+          f"and test included), val acc {val_acc[-1]:.4f}, test acc "
+          f"{test_acc:.4f}; K1 launches {launched['polar_iterate']} = {seen['steps']} x {STEPS}, "
+          f"no other kernel; model saved; the CLI's world closed {not dist.is_initialized()} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"training_mnist --dp launched {launched} over {seen['steps']} steps")
+    return {"launches": launched["polar_iterate"], "steps": seen["steps"], "ms_per_batch": ms_batch}
+
+
+def mesh_profile(what, fn) -> dict:
+    """One call of ``fn`` under torch.profiler (host and device, shapes
+    recorded): its wall time unprofiled, the device busy time (the union of
+    kernel intervals), K5's, K1's and NCCL's device ms, and the collectives of
+    each step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensornetworkforml_torch.utils.collectives import (
+        parse_collectives,
+        step_collectives,
+        trace_events,
+    )
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = trace_events(prof)
+    kernels = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
+
+    def dev_ms(parts):
+        return sum(e["dur"] for e in kernels if any(p in e["name"] for p in parts)) / 1e3
+
+    colls = parse_collectives(events)
+    steps = step_collectives(events)
+    out = {"wall_ms": wall, "busy_ms": busy, "idle": max(0.0, 1 - busy / wall),
+           "k5_ms": dev_ms(PROFILE_KERNELS["K4/K5"]), "k1_ms": dev_ms(PROFILE_KERNELS["K1"]),
+           "nccl_ms": dev_ms(("nccl", "ncclDev")), "colls": colls, "steps": steps,
+           "nccl_host_us": sum(c["end"] - c["ts"] for c in colls)}
+    n_red = sum(1 for c in colls if c["op"] == "all_reduce")
+    print(f"[mesh] profile {what}: {wall:.1f} ms unprofiled, device busy {busy:.2f} ms (idle "
+          f"share {out['idle']:.3f}); K5 {out['k5_ms']:.2f} ms, K1 {out['k1_ms']:.2f} ms, NCCL "
+          f"{out['nccl_ms']:.3f} ms on the device; {len(colls)} collectives ({n_red} all-reduce, "
+          f"{sum(c['bytes'] for c in colls) / 1e6:.3f} MB), {len(steps)} step ranges, "
+          f"{out['nccl_host_us'] / max(len(colls), 1):.1f} us of host time a collective")
+    return out
+
+
+def dist_polar_float64(bmat, rank, mesh, axis="model"):
+    """The dist-polar split on one rank in float64: K5's and K1's plain
+    versions (at the float32 path's dead_tol) on the same Omega."""
+    b = bmat.double()
+    I, J = b.shape
+    om = svd_mod.rangefinder_omega(J, min(rank, I), torch.float32, b.device).double()
+    q = polar_split.polar_iterate_reference(*polar_split.polar_sketch_gram_reference(b, om),
+                                            dead_tol=1e-6)
+    return q, q.T @ b
+
+
+def fresh_gap(a, b, x_fresh) -> float:
+    """max|f_a - f_b| / max|f_b| on fresh requests, each model in its dtype."""
+    fa = mps_forward(a, psi_embed(x_fresh.to(a.dtype))).double()
+    fb = mps_forward(b, psi_embed(x_fresh.to(b.dtype))).double()
+    if not (torch.isfinite(fa).all() and torch.isfinite(fb).all()):
+        fail("a mesh-phase model gives non-finite scores")
+    return float((fa - fb).abs().max() / fb.abs().max())
+
+
+def rel_max(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def phase_mesh(mps0, x_tr, y_tr, x_fresh, requests) -> dict:
+    """[mesh]: parallel/ at the flagship in a world of one on the card: two
+    data-parallel polar sweeps (K1) against sweep_once, with one NCCL
+    all-reduce a step; a dist_split="polar" sweep (K5 and K1, 195 launches
+    each) against its float64 run, its step-98 split bit for bit against
+    polar_split_two_stage; K5 on two column halves summed against K5 on the
+    whole; fused_epoch(mesh=...) against the unsharded epoch; mesh serving
+    through K3 against the plain Predictor; then the --dp CLI."""
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.parallel import dist_split as dist_mod
+    from tensornetworkforml_torch.parallel.dp import ShardedTrainer
+    from tensornetworkforml_torch.parallel.mesh import make_mesh
+
+    out = {"cli": phase_mesh_cli()}
+    mesh = make_mesh()  # the default device: the card, NCCL over a HashStore
+    try:
+        if (mesh.device_type != "cuda" or dist.get_backend() != "nccl"
+                or dist.get_world_size() != 1):
+            fail(f"make_mesh() gave {mesh} over {dist.get_backend()}")
+        print(f"[mesh] make_mesh() on the default device: {mesh}, backend "
+              f"{dist.get_backend()}, world {dist.get_world_size()}")
+        cfg = flagship_cfg("xla")
+        xs = [torch.as_tensor(x_tr[b * BATCH:(b + 1) * BATCH], device=DEVICE)
+              for b in range(MESH_BATCHES)]
+        ys = [torch.as_tensor(y_tr[b * BATCH:(b + 1) * BATCH], device=DEVICE)
+              for b in range(MESH_BATCHES)]
+
+        # data-parallel sweeps against sweep_once
+        trainer = ShardedTrainer(mesh, mps0, LR, WD, cfg=cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        accs = [trainer.step(x, y) for x, y in zip(xs, ys)]
+        torch.cuda.synchronize()
+        dp_ms = (time.perf_counter() - t0) * 1e3 / MESH_BATCHES
+        launched = counts()
+        ref = mps0
+        for x, y in zip(xs, ys):
+            ref = sweep_once(ref, psi_embed(x), one_hot_labels(y, L, torch.float32), LR, WD,
+                             cfg)[0]
+        got = trainer.mps
+        gaps = (rel_max(got.sites, ref.sites), rel_max(got.label_site, ref.label_site),
+                fresh_gap(got, ref, x_fresh))
+        bits = torch.equal(got.sites, ref.sites) and torch.equal(got.label_site, ref.label_site)
+        ok = (launched["polar_iterate"] == MESH_BATCHES * STEPS
+              and sum(launched.values()) == launched["polar_iterate"]
+              and max(gaps) <= MESH_TOL and got.device.type == "cuda")
+        print(f"[mesh] ShardedTrainer (polar, {MESH_BATCHES} sweeps of {BATCH}): {dp_ms:.1f} ms a "
+              f"sweep, batch acc {accs}; K1 launches {launched['polar_iterate']} = {MESH_BATCHES} "
+              f"x {STEPS}, no other kernel; against sweep_once on the same batches: sites "
+              f"{gaps[0]:.3g}, label core {gaps[1]:.3g}, fresh scores {gaps[2]:.3g} of max (tol "
+              f"{MESH_TOL:g}); bit for bit: {bits} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the data-parallel sweeps launched {launched} or part from sweep_once by {gaps}")
+        out["dp_launches"], out["dp_ms"], out["dp_bits"] = launched["polar_iterate"], dp_ms, bits
+        grad = M * D * L * D * M
+        fresh = iter([ShardedTrainer(mesh, mps0, LR, WD, cfg=cfg) for _ in range(2)])
+        prof = mesh_profile(f"data-parallel sweep (B={BATCH})",
+                            lambda: next(fresh).step(xs[0], ys[0]))
+        per_step = [[(c["op"], c["elements"]) for c in s] for s in prof["steps"]]
+        ok = (len(per_step) == STEPS
+              and all(s == [("all_reduce", grad + 3)] for s in per_step))
+        print(f"[mesh] NCCL collectives of one data-parallel sweep: {len(per_step)} steps, each "
+              f"one all_reduce of {grad} + 3 elements ({(grad + 3) * 4 / 1e3:.2f} kB): {ok}; "
+              f"NCCL device {prof['nccl_ms'] * 1e3 / STEPS:.1f} us and host "
+              f"{prof['nccl_host_us'] / max(len(prof['colls']), 1):.1f} us a collective against "
+              f"{prof['wall_ms'] / STEPS * 1e3:.0f} us a step")
+        if not ok:
+            fail(f"the data-parallel sweep's steps issued {per_step[:3]} ...")
+        out["dp_profile"] = prof
+        # the data-parallel sweep in turns with sweep_once on the same batch
+        # (single, mesh, mesh, single): what the world of one adds
+        fresh = iter([ShardedTrainer(mesh, mps0, LR, WD, cfg=cfg) for _ in range(2)])
+        phi0, y1h0 = psi_embed(xs[0]), one_hot_labels(ys[0], L, torch.float32)
+        timed = {}
+        for which in ("single", "mesh", "mesh", "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "mesh":
+                next(fresh).step(xs[0], ys[0])
+            else:
+                sweep_once(mps0, phi0, y1h0, LR, WD, cfg)
+            torch.cuda.synchronize()
+            timed.setdefault(which, []).append((time.perf_counter() - t0) * 1e3)
+        out["turns_ms"] = {k: sum(v) / len(v) for k, v in timed.items()}
+        print(f"[mesh] in turns (sweep_once, mesh, mesh, sweep_once) on batch 0: sweep_once "
+              f"{timed['single'][0]:.1f} / {timed['single'][1]:.1f} ms, the data-parallel sweep "
+              f"{timed['mesh'][0]:.1f} / {timed['mesh'][1]:.1f} ms: "
+              f"{(out['turns_ms']['mesh'] - out['turns_ms']['single']) / STEPS * 1e3:.1f} us a "
+              f"step added")
+        host_time_line("data-parallel sweep",
+                       lambda: ShardedTrainer(mesh, mps0, LR, WD, cfg=cfg).step(xs[0], ys[0]))
+
+        # the dist-polar sweep: K5 and K1 on every step
+        captured = {"calls": 0}
+        real_split = dist_mod.distributed_polar_split
+
+        def spy(bmat, rank, mesh_, *a, **k):
+            if captured["calls"] == CAPTURE_STEP:
+                captured["bmat"] = bmat.clone()
+            captured["calls"] += 1
+            return real_split(bmat, rank, mesh_, *a, **k)
+
+        dtrainer = ShardedTrainer(mesh, mps0, LR, WD, cfg=cfg, dist_split="polar")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(dist_mod, "distributed_polar_split", spy):
+            dtrainer.step(xs[0], ys[0])
+        torch.cuda.synchronize()
+        dist_ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        ok = (launched["polar_sketch_gram"] == STEPS and launched["polar_iterate"] == STEPS
+              and sum(launched.values()) == 2 * STEPS and captured["calls"] == STEPS)
+        print(f"[mesh] ShardedTrainer(dist_split='polar'), one sweep of {BATCH}: {dist_ms:.1f} ms; "
+              f"K5 launches {launched['polar_sketch_gram']}, K1 {launched['polar_iterate']} "
+              f"(want {STEPS} each), no other kernel {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the dist-polar sweep launched {launched}")
+        out["dist_launches"], out["dist_ms"] = launched["polar_sketch_gram"], dist_ms
+        out["dist_k1_launches"] = launched["polar_iterate"]
+        m64 = mps0.replace(sites=mps0.sites.double(), label_site=mps0.label_site.double())
+        t64 = ShardedTrainer(mesh, m64, LR, WD, cfg=cfg, dist_split="polar")
+        with mock.patch.object(dist_mod, "distributed_polar_split", dist_polar_float64):
+            t64.step(xs[0].double(), ys[0])
+        gap = fresh_gap(dtrainer.mps, t64.mps, x_fresh)
+        print(f"[mesh] dist-polar sweep against its float64 run (K5's and K1's plain versions in "
+              f"float64): fresh scores {gap:.3g} of max|f| (tol {SWEEP_TOL:g}) "
+              f"{'ok' if gap <= SWEEP_TOL else 'FAIL'}")
+        if gap > SWEEP_TOL:
+            fail(f"the dist-polar sweep parts from its float64 run by {gap:.3g}")
+        bmat = captured["bmat"]
+        q, r = real_split(bmat, M, mesh)
+        q1, r1 = polar_split.polar_split_two_stage(bmat, M)
+        same = torch.equal(q, q1) and torch.equal(r, r1)
+        print(f"[mesh] step {CAPTURE_STEP}'s split (I={bmat.shape[0]} J={bmat.shape[1]} q={M}) "
+              f"through distributed_polar_split equals polar_split_two_stage bit for bit: {same}")
+        if not same:
+            fail("the one-rank distributed polar split differs from polar_split_two_stage")
+        fresh = iter([ShardedTrainer(mesh, mps0, LR, WD, cfg=cfg, dist_split="polar")
+                      for _ in range(2)])
+        out["dist_profile"] = mesh_profile(f"dist-polar sweep (B={BATCH})",
+                                           lambda: next(fresh).step(xs[0], ys[0]))
+        host_time_line("dist-polar sweep", lambda: ShardedTrainer(
+            mesh, mps0, LR, WD, cfg=cfg, dist_split="polar").step(xs[0], ys[0]))
+        colls = out["dist_profile"]["colls"]
+        out["gather_bytes"] = sum(c["bytes"] for c in colls if c["op"] == "all_gather") / STEPS
+        out["reduce_bytes"] = sum(c["bytes"] for c in colls if c["op"] == "all_reduce") / STEPS
+        print(f"[mesh] dist-polar sweep bytes a step: all_reduce {out['reduce_bytes'] / 1e3:.1f} "
+              f"kB (the gradient and metrics, then y, G and n2), all_gather "
+              f"{out['gather_bytes'] / 1e3:.1f} kB (the label core's columns)")
+
+        # K5 on two column halves against K5 on the whole matrix
+        I, J = bmat.shape
+        om = svd_mod.rangefinder_omega(J, M, torch.float32, bmat.device).contiguous()
+        whole = polar_split.polar_sketch_gram(bmat, om)
+        halves = [polar_split.polar_sketch_gram(bmat[:, s].contiguous(), om[s].contiguous())
+                  for s in (slice(0, J // 2), slice(J // 2, J))]
+        errs = [rel_max(a + b, w) for a, b, w in zip(*halves, whole)]
+        ok = max(errs) <= RED_TOL
+        print(f"[mesh] K5 on step {CAPTURE_STEP}'s two column halves (I={I} J={J // 2} q={M} "
+              f"each), summed, against K5 on the whole: y {errs[0]:.3g}, G {errs[1]:.3g}, n2 "
+              f"{errs[2]:.3g} of max (tol {RED_TOL:g}, 3xTF32 sums in another order) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K5's column halves do not sum to the whole: {errs}")
+
+        # fused_epoch over the mesh against the unsharded epoch
+        xe, ye = torch.stack(xs), torch.stack(ys)
+        reset_counts()
+        m_mesh, acc_mesh, _ = epoch_mod.fused_epoch(mps0, xe, ye, LR, WD, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        launched = counts()
+        m_one, acc_one, _ = epoch_mod.fused_epoch(mps0, xe, ye, LR, WD, cfg)
+        gap = fresh_gap(m_mesh, m_one, x_fresh)
+        ok = (launched["polar_iterate"] == MESH_BATCHES * STEPS and gap <= MESH_TOL
+              and torch.equal(acc_mesh, acc_one))
+        print(f"[mesh] fused_epoch(mesh=...) on {MESH_BATCHES} batches: K1 launches "
+              f"{launched['polar_iterate']}; against the unsharded epoch: fresh scores {gap:.3g} "
+              f"of max (tol {MESH_TOL:g}), batch accuracies equal, sites bit for bit "
+              f"{torch.equal(m_mesh.sites, m_one.sites)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the mesh epoch differs from the unsharded epoch")
+
+        # mesh serving through K3
+        reset_counts()
+        pred = Predictor(mps0, mesh=mesh)
+        served = pred.scores(requests[:BATCH])
+        k3 = counts()["right_env_chain"]
+        plain = Predictor(mps0).scores(requests[:BATCH])
+        same = bool(np.array_equal(served, plain))
+        ok = same and k3 == 1 and pred.use_kernel and pred.device.type == "cuda"
+        print(f"[mesh] Predictor(mesh=...) at batch {BATCH} on {pred.device}: K3 launches {k3}; "
+              f"the scores equal the single-device Predictor's bit for bit: {same} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("mesh serving differs from the single-device Predictor or missed K3")
+        out["serve_launches"] = k3
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 T_START = time.perf_counter()
 OTHER_CSRC = None  # --other-csrc: a csrc directory whose kernels are timed beside these
 
@@ -3182,6 +3533,7 @@ def main() -> None:
     ens_key = ("right_env_chain", BATCH, ensemble["M"])
     launches[ens_key], errs[ens_key], ms[ens_key] = (
         ensemble["launches"], ensemble["err"], ensemble["ms"])
+    mesh = phase_mesh(mps, x_tr, y_tr, x_fresh, requests)
 
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
@@ -3291,6 +3643,8 @@ def main() -> None:
             # this K3 beside the other build's, timed in turns, where --other-csrc
             # named one (at the flagship's M)
             row["parent_ms"] = ms.get(("parent", key[1])) if m_chain == M else None
+            if key == ("right_env_chain", BATCH):  # Predictor(mesh=...) in a world of one
+                row["launches_mesh"] = mesh["serve_launches"]
         elif ("parent", key) in ms:  # the other build's, timed in turns
             row["parent_ms"] = ms[("parent", key)]
         if name == "two_site_step":  # at M=256 B=64 (K1 at I = 512 inside)
@@ -3300,6 +3654,8 @@ def main() -> None:
             row["shape"] = (f"I={I_big} J={J_big} q={M_LARGE}"
                             if key == ("polar_sketch_gram", M_LARGE)
                             else f"I={M * D} J={L * D * M} q={M}")
+            if key == "polar_sketch_gram":  # K5's first sweep: dist_split="polar"
+                row["launches_dist_sweep"] = mesh["dist_launches"]
         if name == "two_site_presplit":
             m = M_WIDE if key == ("two_site_presplit", M_WIDE) else M
             row["shape"] = f"L={L} I={m * D} DM={D * m} Mk={m} B={BATCH} q={m}"
@@ -3309,9 +3665,12 @@ def main() -> None:
             m = M_WIDE if key == ("polar_iterate", M_WIDE) else M
             row["shape"] = f"I={m * D} q={m}"
             row["form"] = k1_form(m * D, m)
-            if m == M:  # K1's launches on the teacher student's and the CLI's paths
+            if m == M:  # K1's launches on the teacher student's, the CLIs' and the mesh paths
                 row["launches_teacher"] = teacher["launches"]
                 row["launches_cli"] = cli["launches"]
+                row["launches_dp"] = mesh["dp_launches"]
+                row["launches_dist_sweep"] = mesh["dist_k1_launches"]
+                row["launches_cli_dp"] = mesh["cli"]["launches"]
         if key in tensor_core or name in tensor_core:  # the float32 bound beside the 3xTF32 one
             row["bound_fp32_ms"] = bound_ms(*work[key if key in work else name])[0]
             row["bound_share"] = b_ms / ms[key][0]
@@ -3331,7 +3690,10 @@ def main() -> None:
           f"{onesite['sweep_ms']:.1f} ms, at N={ONESITE_LONG_N} M={ONESITE_LONG_M} "
           f"{onesite['long_ms']:.1f} ms; autodiff step {autodiff['step_ms']:.1f} ms; ensemble "
           f"step {ensemble['step_ms']:.1f} ms, test acc {ensemble['test_acc']:.4f}; "
-          f"{time.perf_counter() - T_START:.1f} s in all")
+          f"data-parallel sweep {mesh['dp_ms']:.1f} ms (world of one; in turns "
+          f"{mesh['turns_ms']['mesh']:.1f} against sweep_once's {mesh['turns_ms']['single']:.1f}), "
+          f"dist-polar sweep {mesh['dist_ms']:.1f} ms, --dp CLI {mesh['cli']['ms_per_batch']:.1f} "
+          f"ms/batch; {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,8 +13,11 @@ The flags, defaults and derived defaults are the JAX package's
 ``cli/training_mnist.py``, plus ``--device``. ``--trainer onesite`` and
 ``--trainer brickwall`` train the boundary-label family
 (``train/onesite.py``, ``train/brickwall.py``) and save it with
-``save_boundary_checkpoint``. ``--dp`` (ROADMAP queue 1 item 11) raises
-``NotImplementedError`` before any data is loaded.
+``save_boundary_checkpoint``. ``--dp`` trains through
+``parallel/dp.py::ShardedTrainer``, each batch split over the ranks of a
+``torch.distributed`` mesh: run plainly, that is a world of one on the
+device; under ``torchrun --nproc_per_node k`` it spans k ranks, one card
+each (gloo with ``--device cpu``), and rank 0 prints and saves.
 """
 
 from __future__ import annotations
@@ -66,8 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--dp", action="store_true",
-                   help="Shard the batch over all devices (data parallel; "
-                        "not ported yet)")
+                   help="Shard the batch over all ranks (data parallel: a "
+                        "world of one, or torchrun's ranks)")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Path for per-epoch training-state checkpoints")
     p.add_argument("--resume", action="store_true",
@@ -173,6 +176,54 @@ def train_boundary(args, N, long_chain, bond_schedule, x_cal, loaders, device):
     return val_acc, test_acc
 
 
+def train_dp(args, mps: MPS, lr, lr_decay, renorm, growth_cap, warmup_epochs, train_loader,
+             val_loader, device):
+    """``--dp``: the JAX package's data-parallel branch. A mesh over every
+    rank (initialised here when no process group exists yet), one
+    ``ShardedTrainer.step`` a batch at ``lr * lr_decay ** epoch``, the warmup
+    epochs at the small warmup batch, checkpoints and ``--resume`` as in the
+    JAX package. Returns ``(mps, val_acc, owns_world)``; rank 0 prints and
+    writes the checkpoints."""
+    import os
+
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.data.loader import warmup_batch_size, with_batch_size
+    from tensornetworkforml_torch.parallel.dp import ShardedTrainer
+    from tensornetworkforml_torch.parallel.mesh import make_mesh
+    from tensornetworkforml_torch.train.sweep import SweepConfig
+    from tensornetworkforml_torch.train.trainer import evaluate_accuracy
+    from tensornetworkforml_torch.utils.checkpoint import load_training_state, save_training_state
+
+    owns_world = not dist.is_initialized()
+    mesh = make_mesh(device=device)
+    lead = dist.get_rank() == 0
+    cfg = SweepConfig(act_fn=args.act_fn, loss_fn=args.loss_fn, L2_flag=False,
+                      split_mode="canonical", svd_method=args.svd_method,
+                      renorm_envs=renorm, growth_cap=growth_cap)
+    start_epoch = 0
+    if args.checkpoint and args.resume and os.path.exists(args.checkpoint):
+        mps, start_epoch = load_training_state(args.checkpoint, mps)
+        if start_epoch and lead:
+            print(f"resuming from epoch {start_epoch}")
+    trainer = ShardedTrainer(mesh, mps, lr=lr, weight_dec=args.weight_dec, cfg=cfg)
+    # warmup in the small-batch basin: the absolute warmup batch size (<= 128)
+    # is the active ingredient (train/trainer.py::train_model)
+    warm_loader = (with_batch_size(train_loader, warmup_batch_size(args.batch_size))
+                   if warmup_epochs > 0 else None)
+    val_acc = []
+    for epoch in range(start_epoch, args.n_epochs):
+        trainer.lr = lr * lr_decay ** epoch
+        loader = warm_loader if epoch < warmup_epochs else train_loader
+        accs = [trainer.step(x, y) for x, y in loader.batches()]
+        val_acc.append(evaluate_accuracy(trainer.mps, val_loader))
+        if lead:
+            print(f"Epoch {epoch}: train {np.mean(accs):.4f} val {val_acc[-1]:.4f}")
+            if args.checkpoint:
+                save_training_state(args.checkpoint, trainer.mps, epoch + 1)
+    return trainer.mps, val_acc, owns_world
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.trainer == "brickwall" and args.svd_method not in ("cholqr", "rangefinder"):
@@ -180,11 +231,6 @@ def main(argv=None):
             "--trainer brickwall supports --svd_method cholqr or "
             f"rangefinder (got {args.svd_method!r})"
         )
-    if args.dp:
-        raise NotImplementedError(
-            "--dp (data-parallel training) is not ported yet (ROADMAP queue 1 item 11)"
-        )
-
     from tensornetworkforml_torch.data.loader import prepare_dataset
     from tensornetworkforml_torch.data.mnist import (
         get_MNIST_dataset,
@@ -277,24 +323,34 @@ def main(argv=None):
         return initial_mps(args.seed + 7919 * attempt, N, args.M, args.act_fn,
                            args.loss_fn, x_cal[:256], device)
 
-    mps, val_acc, var_hist = train_model(
-        mps, train_loader, val_loader, lr=lr_arg,
-        n_epochs=args.n_epochs, weight_dec=args.weight_dec,
-        L2_flag=False, split_mode="canonical",
-        svd_method=args.svd_method, renorm_envs=renorm,
-        growth_cap=growth_cap, checkpoint_path=args.checkpoint,
-        resume=args.resume, warmup_epochs=warmup_epochs,
-        bond_schedule=bond_schedule, restarts=restarts,
-        reinit_fn=reinit_fn, stall_threshold=args.stall_threshold,
-    )
+    owns_world, lead = False, True
+    if args.dp:
+        import torch.distributed as dist
+
+        mps, val_acc, owns_world = train_dp(args, mps, lr, lr_decay, renorm, growth_cap,
+                                            warmup_epochs, train_loader, val_loader, device)
+        lead = dist.get_rank() == 0
+    else:
+        mps, val_acc, var_hist = train_model(
+            mps, train_loader, val_loader, lr=lr_arg,
+            n_epochs=args.n_epochs, weight_dec=args.weight_dec,
+            L2_flag=False, split_mode="canonical",
+            svd_method=args.svd_method, renorm_envs=renorm,
+            growth_cap=growth_cap, checkpoint_path=args.checkpoint,
+            resume=args.resume, warmup_epochs=warmup_epochs,
+            bond_schedule=bond_schedule, restarts=restarts,
+            reinit_fn=reinit_fn, stall_threshold=args.stall_threshold,
+        )
 
     test_acc = evaluate_accuracy(mps, test_loader)
-    print(f"\nTest accuracy: {test_acc:.4f}")
-
-    net = Network.__new__(Network)
-    net.mps = mps
-    net.save(args.out)
-    print(f"Model saved to {args.out}")
+    if lead:
+        print(f"\nTest accuracy: {test_acc:.4f}")
+        net = Network.__new__(Network)
+        net.mps = mps
+        net.save(args.out)
+        print(f"Model saved to {args.out}")
+    if owns_world:
+        dist.destroy_process_group()
     return val_acc, test_acc
 
 

@@ -5,7 +5,9 @@ device. Requests of any size are cut into chunks of ``batch_size``; the last
 chunk is padded with zero rows on the device, so every launch sees the same
 batch shape. Both model families are served: the traveling-label ``MPS``
 and the boundary-label ``BoundaryMPS`` (the one-site and brick-wall
-trainers' family).
+trainers' family). With a mesh (``parallel/mesh.py``) every rank scores its
+rows of each chunk (by its ``data`` coordinate) and the scores are
+all-gathered, so every rank returns all of them.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ class Predictor:
     JAX package's ``use_pallas=True`` does. ``use_pallas`` is the JAX
     package's name for ``use_kernel``, as argument and attribute, with the
     same meaning; passing both with different values raises ``ValueError``.
+
+    With a ``mesh``, every rank builds the predictor and calls it with the
+    same requests: the model is rank 0's (a broadcast), on the mesh's device
+    (``device`` is then ignored), each rank scores its ``batch_size / d``
+    rows of each chunk through the same forward (K3 on the card), and one
+    all-gather a chunk gives every rank all the scores. ``batch_size`` must
+    divide over the ``data`` axis.
     """
 
     def __init__(
@@ -55,15 +64,22 @@ class Predictor:
                     "use_pallas is the JAX package's name for use_kernel"
                 )
             use_kernel = use_pallas
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (batch-sharded) serving is not ported yet "
-                "(ROADMAP queue 1 item 11)"
-            )
-        self.device = resolve_device(device)
         self.batch_size = int(batch_size)
         self.activation = activation
         self._is_boundary = isinstance(mps, BoundaryMPS)
+        self._dp = None
+        if mesh is not None:
+            from tensornetworkforml_torch.parallel.mesh import DataShards, mesh_device, replicated
+
+            self._dp = DataShards(mesh)
+            if self.batch_size % self._dp.size:
+                raise ValueError(f"batch_size {self.batch_size} does not divide over the mesh's "
+                                 f"data axis of {self._dp.size} ranks")
+            self.device = mesh_device(mesh)
+            to_device = replicated(mesh).local
+        else:
+            self.device = resolve_device(device)
+            to_device = lambda t: t.to(self.device)  # noqa: E731
         if self._is_boundary:
             if use_kernel:
                 raise ValueError(
@@ -71,12 +87,10 @@ class Predictor:
                     "boundary-label family (the fused kernel serves the traveling-"
                     "label MPS only); omit it or pass use_kernel=False"
                 )
-            self.mps = mps.replace(sites=mps.sites.to(self.device), w=mps.w.to(self.device))
+            self.mps = mps.replace(sites=to_device(mps.sites), w=to_device(mps.w))
             self.use_kernel = False
             return
-        self.mps = mps.replace(
-            sites=mps.sites.to(self.device), label_site=mps.label_site.to(self.device)
-        )
+        self.mps = mps.replace(sites=to_device(mps.sites), label_site=to_device(mps.label_site))
         if use_kernel is None:
             use_kernel = (
                 self.device.type == "cuda" and self.mps.D == 2 and self.mps.l_pos == 0
@@ -111,6 +125,11 @@ class Predictor:
             torch.cuda.synchronize(self.device)
 
     def _chunk_scores(self, x: torch.Tensor) -> torch.Tensor:
+        if self._dp is not None:
+            return self._dp.gather(self._rows_scores(self._dp.rows(x)), dim=1)
+        return self._rows_scores(x)
+
+    def _rows_scores(self, x: torch.Tensor) -> torch.Tensor:
         if self._is_boundary:
             f = boundary_forward_arrays(self.mps.sites, self.mps.w, psi_embed(x))
         elif self.use_kernel:

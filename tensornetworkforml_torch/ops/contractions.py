@@ -75,6 +75,34 @@ def right_env_stack(mats: torch.Tensor, e0: torch.Tensor) -> torch.Tensor:
     return torch.stack(out[::-1])
 
 
+def left_env_stack_parallel(mats: torch.Tensor, e0: torch.Tensor) -> torch.Tensor:
+    """``left_env_stack`` with O(log N) sequential depth: the prefix products
+    ``mats[0] @ ... @ mats[n]`` as a tree of batched ``torch.matmul`` (an
+    inclusive scan: ``ceil(log2 N)`` rounds, each one product over the whole
+    stack), then closed on ``e0``. O(N log N) M^3 products against the
+    loop's O(N) M^2 ones: the JAX package's ``associative_scan`` form, worth
+    it where the chain is split across devices or N dominates."""
+    N, B, M, _ = mats.shape
+    prods, shift = mats, 1
+    while shift < N:  # prods[i] <- prods[i - shift] @ prods[i]
+        prods = torch.cat([prods[:shift], prods[:-shift] @ prods[shift:]])
+        shift *= 2
+    envs = torch.einsum("l,nblr->nbr", e0, prods)
+    return torch.cat([e0.expand(1, B, M), envs])
+
+
+def right_env_stack_parallel(mats: torch.Tensor, e0: torch.Tensor) -> torch.Tensor:
+    """``right_env_stack`` with O(log N) sequential depth: the suffix
+    products ``mats[n] @ ... @ mats[N-1]`` by the same tree, right to left."""
+    N, B, M, _ = mats.shape
+    prods, shift = mats, 1
+    while shift < N:  # prods[i] <- prods[i] @ prods[i + shift]
+        prods = torch.cat([prods[:-shift] @ prods[shift:], prods[-shift:]])
+        shift *= 2
+    envs = torch.einsum("nblr,r->nbl", prods, e0)
+    return torch.cat([envs, e0.expand(1, B, M)])
+
+
 def left_env_stack_fused(
     sites: torch.Tensor, phi_t: torch.Tensor, e0: torch.Tensor
 ) -> torch.Tensor:

@@ -23,9 +23,15 @@ long chains, or take the function-space line search.
 The model family is the boundary-label MPS (``models/boundary.py``). The
 JAX epoch is one ``lax.scan`` over the stacked batches; here it is a loop
 over them, in the same order with the same math. No TPU kernel lies on this
-path in the JAX package, and none runs here. The mesh-sharded forms
-(``mesh=``, ``make_sharded_brick_step``) are not ported yet (ROADMAP queue
-1 item 11).
+path in the JAX package, and none runs here.
+
+Data parallelism (``brick_epoch(mesh=...)``, ``make_sharded_brick_step``):
+every rank passes the same batch and takes its rows by its coordinate on the
+mesh's ``data`` axis; each brick layer sums ALL its pair gradients and its
+metric sums over the data ranks in ONE all-reduce (a second, of two scalars,
+with the line search), and the ``w`` update its gradient in one more, so a
+brick sweep's communication depth is three all-reduces whatever N is (the
+two-site sweep needs one a step).
 """
 
 from __future__ import annotations
@@ -90,13 +96,6 @@ class BrickConfig(NamedTuple):
     line_search_floor: float = 0.05
 
 
-def _mesh_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: mesh-sharded brick-wall training is not ported yet "
-        "(ROADMAP queue 1 item 11)"
-    )
-
-
 def _env_stacks(sites, w, phi_t, e0):
     """Left envs before each site ``(N,B,M)``, right envs after each site
     closing on ``w`` ``(N,B,M,L)``, and the full-chain left env ``(B,M)``."""
@@ -113,9 +112,11 @@ def _split_pairs(bmats: torch.Tensor, M: int, method: str):
     raise ValueError(f"unknown split_method {method!r}; expected 'cholqr' or 'rangefinder'")
 
 
-def _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, parity, cfg, T):
+def _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, parity, cfg, T, dp=None):
     """One brick-wall layer: batched two-site updates on all pairs starting at
-    ``parity`` (0 = even bonds, 1 = odd bonds). Returns ``(new_sites, metrics)``."""
+    ``parity`` (0 = even bonds, 1 = odd bonds). Returns ``(new_sites, metrics)``.
+    With ``dp`` (a ``parallel.mesh.DataShards``) the batch inputs are this
+    rank's rows and the sums over the batch run over the data ranks."""
     N, M, D, _ = sites.shape
     dtype, dev = sites.dtype, sites.device
     K = (N - parity) // 2
@@ -123,7 +124,6 @@ def _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, parity, cfg, T):
 
     L_all, R_all, l_full = _env_stacks(sites, w, phi_t, e0)
     f_act = apply_act_fn((l_full @ w).T, cfg.act_fn, T)  # the whole layer's stale output
-    metrics = batch_metrics(f_act, y_onehot)
     loss_der = loss_derivative(f_act, y_onehot, cfg.loss_fn, cfg.act_fn, T)
 
     lo, hi = parity, parity + 2 * K
@@ -138,7 +138,16 @@ def _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, parity, cfg, T):
     u = torch.einsum("ob,kbco->kbc", loss_der, Rk)  # label leg closed on w
     left_part = torch.einsum("kba,kbi->kbai", Lk, x1)
     right_part = torch.einsum("kbj,kbc->kbjc", x2, u)
-    deltaB = torch.einsum("kbai,kbjc->kaijc", left_part, right_part) - weight_dec * B_t
+    grad = torch.einsum("kbai,kbjc->kaijc", left_part, right_part)
+    if dp is None:
+        metrics = batch_metrics(f_act, y_onehot)
+    else:  # every pair's gradient and the metric sums: ONE all-reduce a layer
+        L, B = y_onehot.shape
+        grad, n_right, s_mae = dp.sum(
+            grad, (f_act.argmax(dim=0) == y_onehot.argmax(dim=0)).to(dtype).sum(),
+            (y_onehot - f_act).abs().sum())
+        metrics = {"accuracy": n_right / (B * dp.size), "MAE": s_mae / (L * B * dp.size)}
+    deltaB = grad - weight_dec * B_t
 
     # per-pair L1 clip and ascent step
     s_B = B_t.abs().sum(dim=(1, 2, 3, 4))
@@ -151,8 +160,10 @@ def _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, parity, cfg, T):
         t1 = torch.einsum("kbai,kaijc->kbjc", left_part, direction)
         t2 = torch.einsum("kbjc,kbj->kbc", t1, x2)
         dF = torch.einsum("kbc,kbco->ob", t2, Rk)
-        num = (dF * loss_der).sum()
-        den = torch.clamp((dF * dF).sum(), min=1e-30)
+        num, den = (dF * loss_der).sum(), (dF * dF).sum()
+        if dp is not None:
+            num, den = dp.sum(num, den)
+        den = torch.clamp(den, min=1e-30)
         gamma_raw = torch.clamp(cfg.line_search_relax * num / den, min=0.0, max=lr)
         # floor only the num <= 0 regime (weight decay dominating the clipped
         # direction), so that regularisation never deadlocks
@@ -189,18 +200,19 @@ def _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, parity, cfg, T):
     return new_sites, metrics
 
 
-def _w_update(sites, w, phi_t, y_onehot, lr, weight_dec, cfg, T, e0):
-    return w_step(left_env_final_fused(sites, phi_t, e0), w, y_onehot, lr, weight_dec, cfg, T)
+def _w_update(sites, w, phi_t, y_onehot, lr, weight_dec, cfg, T, e0, dp=None):
+    return w_step(left_env_final_fused(sites, phi_t, e0), w, y_onehot, lr, weight_dec, cfg, T,
+                  dp=dp)
 
 
-def _brick_sweep_body(sites, w, phi, y_onehot, lr, weight_dec, T, cfg):
+def _brick_sweep_body(sites, w, phi, y_onehot, lr, weight_dec, T, cfg, dp=None):
     phi_t = phi.transpose(0, 1)  # (N, B, D)
-    sites, metrics = _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, 0, cfg, T)
+    sites, metrics = _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, 0, cfg, T, dp)
     if sites.shape[0] >= 3:  # the odd layer exists only past two sites
-        sites, _ = _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, 1, cfg, T)
+        sites, _ = _brick_layer(sites, w, phi_t, y_onehot, lr, weight_dec, 1, cfg, T, dp)
     if cfg.update_w:
         e0 = boundary_vector(sites.shape[1], dtype=sites.dtype, device=sites.device)
-        w = _w_update(sites, w, phi_t, y_onehot, lr, weight_dec, cfg, T, e0)
+        w = _w_update(sites, w, phi_t, y_onehot, lr, weight_dec, cfg, T, e0, dp)
     return sites, w, metrics
 
 
@@ -236,34 +248,55 @@ def brick_epoch(
 ):
     """One epoch of brick sweeps: ``x_epoch (n_batches, B, N)`` raw pixels,
     ``y_epoch (n_batches, B)`` integer labels, swept in order. Returns
-    ``(model, metrics)`` with per-batch pre-update metric series."""
-    if mesh is not None:
-        raise _mesh_not_ported("brick_epoch(mesh=...)")
+    ``(model, metrics)`` with per-batch pre-update metric series.
+
+    With a ``mesh`` every rank passes the same epoch and sweeps its rows of
+    each batch (``data`` axis); the model is rank 0's, on the mesh's device,
+    and every rank returns the same model and metrics, the whole batches'."""
     if cfg is None:
         cfg = BrickConfig(act_fn=model.act_fn, loss_fn=model.loss_fn)
     check_precision(cfg.matmul_precision)
+    dp = None
+    if mesh is not None:
+        from tensornetworkforml_torch.parallel.mesh import DataShards, replicated
+
+        dp = DataShards(mesh)
+        model = model.replace(sites=replicated(mesh).local(model.sites),
+                              w=replicated(mesh).local(model.w))
     dev = model.device
     x_epoch = torch.as_tensor(np.asarray(x_epoch)).to(dtype=model.dtype, device=dev)
     phi_epoch = psi_embed(x_epoch)
     y1h = F.one_hot(torch.as_tensor(np.asarray(y_epoch)).long().to(dev), model.L)
     y1h = y1h.to(model.dtype).transpose(1, 2)  # (n_batches, L, B)
+    if dp is not None:
+        phi_epoch, y1h = dp.rows(phi_epoch, dim=1), dp.rows(y1h, dim=2)
     sites, w = model.sites, model.w
     steps = []
     for phi, y in zip(phi_epoch, y1h):
         sites, w, metrics = _brick_sweep_body(sites, w, phi, y, float(lr), float(weight_dec),
-                                              model.T, cfg)
+                                              model.T, cfg, dp)
         steps.append(metrics)
     metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
     return model.replace(sites=sites, w=w), metrics
 
 
 def make_sharded_brick_step(mesh, T: float, cfg: BrickConfig):
-    """The data-parallel brick sweep over a device mesh: not ported yet."""
-    raise _mesh_not_ported("make_sharded_brick_step")
+    """The data-parallel brick sweep over ``mesh``: ``step(sites, w, phi (B,
+    N, D), y_onehot (L, B), lr, weight_dec) -> (sites, w, metrics)``. Every
+    rank passes the replicated parameters and the same global batch and
+    sweeps its rows; the parameters and metrics that come back are the whole
+    batch's, the same on every rank."""
+    from tensornetworkforml_torch.parallel.mesh import DataShards
 
+    check_precision(cfg.matmul_precision)
+    dp = DataShards(mesh)
 
-def _sharded_epoch_fn(mesh, T, cfg):
-    raise _mesh_not_ported("the mesh-sharded brick epoch")
+    def step(sites, w, phi, y_onehot, lr, weight_dec):
+        return _brick_sweep_body(sites, w, dp.rows(phi.to(sites.dtype)),
+                                 dp.rows(y_onehot.to(sites.dtype), dim=1), float(lr),
+                                 float(weight_dec), T, cfg, dp)
+
+    return step
 
 
 def train_brickwall(

@@ -88,12 +88,17 @@ def batch_metrics(f_act: torch.Tensor, y_onehot: torch.Tensor) -> dict:
     return {"accuracy": acc, "MAE": (y_onehot - f_act).abs().mean()}
 
 
-def w_step(l_full, w, y_onehot, lr, weight_dec, cfg, T) -> torch.Tensor:
+def w_step(l_full, w, y_onehot, lr, weight_dec, cfg, T, dp=None) -> torch.Tensor:
     """The once-per-sweep update of the output projection from the full-chain
-    left environment ``l_full (B, M)``: analytic gradient, L1 clip, ascent."""
+    left environment ``l_full (B, M)``: analytic gradient, L1 clip, ascent.
+    With ``dp`` (a ``parallel.mesh.DataShards``) ``l_full`` and ``y_onehot``
+    are this rank's rows and the gradient is summed over the data ranks."""
     f_act = apply_act_fn((l_full @ w).T, cfg.act_fn, T)
     loss_der = loss_derivative(f_act, y_onehot, cfg.loss_fn, cfg.act_fn, T)
-    dw = torch.einsum("ob,br->ro", loss_der, l_full) - weight_dec * w
+    grad = torch.einsum("ob,br->ro", loss_der, l_full)
+    if dp is not None:
+        (grad,) = dp.sum(grad)
+    dw = grad - weight_dec * w
     return w + lr * clip_to(dw, w)
 
 

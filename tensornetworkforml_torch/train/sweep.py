@@ -31,8 +31,19 @@ bond, all the steps of a sweep in one call (``two_site_sweep``). The
 factored large-bond update (``train/factored_step.py``) takes a
 step of the xla engine where the JAX package's rule sends it there
 (``factored_update="on"``, or ``"auto"`` at ``M*D > 512``, for a canonical
-fixed-rank polar split with no L2); it runs no kernel. ``dist_split`` is not
-ported yet and raises ``NotImplementedError``.
+fixed-rank polar split with no L2); it runs no kernel. ``dist_split``
+(``"cholqr"`` or ``"polar"``) splits each step's two-site matrix with its
+columns over ``dist_mesh``'s ``model`` axis (``parallel/dist_split.py``; the
+polar form runs kernel K5 on each column block, then K1), and all-gathers the
+new label core's columns over that axis, so that the next merge sees the
+whole core.
+
+Data parallelism (``parallel/dp.py``): each rank sweeps its own rows of the
+batch, and ``dp`` (a ``parallel.mesh.DataShards``) turns the step's sums over
+the batch -- the gradient and the step metrics -- into ONE all-reduce over
+the mesh's ``data`` axis, and ``renorm_envs``' mean env norm into a second,
+scalar one after the split. Each step then runs inside a profiler range
+named ``utils.collectives.STEP_RANGE``.
 
 ``matmul_precision``: every product of the port runs in float32 (TF32 stays
 off), apart from K4a and K4b, which run in 3xTF32 on the tensor cores, within
@@ -43,6 +54,7 @@ not taken yet (ROADMAP queue 1 item 9).
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -67,12 +79,14 @@ from tensornetworkforml_torch.ops.kernels.step_kernel import (
     two_site_sweep,
 )
 from tensornetworkforml_torch.ops.svd import truncated_svd_split
+from tensornetworkforml_torch.utils.collectives import STEP_RANGE
 from tensornetworkforml_torch.train.factored_step import (
     factored_supported,
     two_site_update_factored,
 )
 
 _FULL_F32 = ("default", "float32", "highest")
+_NO_RANGE = contextlib.nullcontext()
 
 
 class SweepConfig(NamedTuple):
@@ -127,7 +141,7 @@ def _factored_route(cfg: SweepConfig, M: int, D: int) -> bool:
 
 def two_site_update(
     label_site, A2, x1, x2, l_env, r_env, E2, r2_step, y_onehot, f,
-    lr, weight_dec, rank, T: float, cfg: SweepConfig,
+    lr, weight_dec, rank, T: float, cfg: SweepConfig, dp=None,
 ):
     """ONE two-site update (the reference's ``sweep_step`` + ``update_B`` +
     ``tensor_svd``), in right-sweep orientation.
@@ -138,31 +152,27 @@ def two_site_update(
     and right transfer product ``r2_step (M,M)``, targets ``(L,B)``, the
     previous output ``f (L,B)``. Returns ``(A_left, new_label_site,
     new_l_env, new_E2, f_new, metrics)``.
+
+    With ``dp`` (a ``parallel.mesh.DataShards``) the batch inputs are this
+    rank's rows: the gradient and the metric sums are summed over the data
+    ranks in one all-reduce, so the parameters and metrics that come out are
+    those of the whole batch, and ``l_env_new`` and ``f_new`` this rank's rows.
     """
     M, D, L, _ = label_site.shape
     B = x1.shape[0]
+    B_all = B * (dp.size if dp is not None else 1)
     dtype, dev = label_site.dtype, label_site.device
     if _factored_route(cfg, M, D):
         A_left, label_new, l_env_new, f_new, metrics = two_site_update_factored(
             label_site, A2, x1, x2, l_env, r_env, y_onehot, f, lr, weight_dec, T, cfg,
         )
         return A_left, label_new, l_env_new, E2, f_new, metrics
-    if cfg.dist_split != "none":
-        raise NotImplementedError(
-            "dist_split (bond-distributed splits) is not ported yet "
-            "(ROADMAP queue 1 item 11)"
-        )
 
     # merge the active pair: B[a,i,o,j,c] (left, d1, label, d2, right)
     B_t = torch.einsum("aiok,kjc->aiojc", label_site, A2)
 
     f_act = apply_act_fn(f, cfg.act_fn, T)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    if cfg.step_metrics:
-        acc = (f_act.argmax(dim=0) == y_onehot.argmax(dim=0)).to(dtype).mean()
-        mae = (y_onehot - f_act).abs().mean()
-    else:
-        acc = mae = zero
 
     # dB[a,i,o,j,c] = sum_b loss_der[o,b] l_env[b,a] x1[b,i] x2[b,j] r_env[b,c]
     loss_der = loss_derivative(f_act, y_onehot, cfg.loss_fn, cfg.act_fn, T)
@@ -170,6 +180,12 @@ def two_site_update(
     right_part = (x2[:, :, None] * r_env[:, None, :]).reshape(B, D * M)
     w_t = loss_der.T[:, :, None] * right_part[:, None, :]  # (B, L, D*M)
     deltaB = (left_part.T @ w_t.reshape(B, L * D * M)).reshape(M, D, L, D, M)
+    sums = [(f_act.argmax(dim=0) == y_onehot.argmax(dim=0)).to(dtype).sum(),
+            (y_onehot - f_act).abs().sum(), f.abs().sum()] if cfg.step_metrics else []
+    if dp is not None:  # the gradient and the metric sums: ONE all-reduce a step
+        deltaB, *sums = dp.sum(deltaB, *sums)
+    acc, mae, mean_abs_f = (
+        (sums[0] / B_all, sums[1] / (L * B_all), sums[2] / (L * B_all)) if sums else (zero,) * 3)
 
     if cfg.L2_flag:
         deriv = torch.einsum(
@@ -212,10 +228,15 @@ def two_site_update(
                 "(svd_method='svd' or 'cholsvd'), got "
                 f"{cfg.svd_method!r}"
             )
+        if cfg.dist_split != "none":
+            raise ValueError("rank_mode='adaptive' requires dist_split='none'")
         atol = cfg.adaptive_tol
-    left_flat, right_flat = truncated_svd_split(
-        bmat, M, cfg.svd_method, keep=keep, split_mode=cfg.split_mode, adaptive_tol=atol,
-    )
+    if cfg.dist_split != "none":
+        left_flat, right_flat = _dist_split_step(bmat, M, keep, cfg)
+    else:
+        left_flat, right_flat = truncated_svd_split(
+            bmat, M, cfg.svd_method, keep=keep, split_mode=cfg.split_mode, adaptive_tol=atol,
+        )
     A_left = left_flat.reshape(M, D, M).to(dtype)
     label_new = right_flat.reshape(M, L, D, M).permute(0, 2, 1, 3).to(dtype)
 
@@ -224,7 +245,12 @@ def two_site_update(
 
     if cfg.renorm_envs:
         # norm transfer: unit mean env norm, compensated in the label core
-        g = 1.0 / torch.clamp(torch.linalg.vector_norm(l_env_new, dim=1).mean(), min=1e-30)
+        norms = torch.linalg.vector_norm(l_env_new, dim=1)
+        if dp is None:
+            mean_norm = norms.mean()
+        else:  # the second, scalar all-reduce of a data-parallel step
+            mean_norm = dp.sum(norms.sum())[0] / B_all
+        g = 1.0 / torch.clamp(mean_norm, min=1e-30)
         A_left = A_left * g
         l_env_new = l_env_new * g
         label_new = label_new / g
@@ -237,7 +263,7 @@ def two_site_update(
             "MAE": mae,
             "sum_abs_B": s_B,
             "sum_abs_deltaB": sum_abs_dB,
-            "mean_abs_f": f.abs().mean(),
+            "mean_abs_f": mean_abs_f,
             "L2_loss": l2_loss,
             "sum_abs_L2_grad": l2_grad.abs().sum(),
         }
@@ -249,6 +275,27 @@ def two_site_update(
     if cfg.rank_mode == "adaptive":
         metrics["live_rank"] = ((right_flat * right_flat).sum(dim=1) > 0).to(dtype).sum()
     return A_left, label_new, l_env_new, E2_new, f_new, metrics
+
+
+def _dist_split_step(bmat, M: int, keep, cfg: SweepConfig):
+    """The bond-distributed split of one step (``cfg.dist_split``): ``Q``,
+    and the new label core's columns all-gathered over the mesh's ``model``
+    axis (``M * J`` floats a step), so that the next merge sees the whole
+    core. Refuses what the JAX package refuses."""
+    if cfg.split_mode != "canonical" or keep is not None:
+        raise ValueError("dist_split requires split_mode='canonical' and rank_mode='fixed'")
+    if cfg.dist_mesh is None:
+        raise ValueError("dist_split set but dist_mesh is None")
+    # parallel/ imports this module: bind it at call time
+    from tensornetworkforml_torch.parallel import dist_split as _dist_split
+    from tensornetworkforml_torch.parallel.mesh import MODEL_AXIS, Shard
+
+    dist_fn = {
+        "cholqr": _dist_split.distributed_cholqr_split,
+        "polar": _dist_split.distributed_polar_split,
+    }[cfg.dist_split]
+    left_flat, right_loc = dist_fn(bmat, M, cfg.dist_mesh)
+    return left_flat, Shard(cfg.dist_mesh, MODEL_AXIS, 1).gather(right_loc)
 
 
 def _spread_label_norm(new_sites, label_final):
@@ -381,10 +428,13 @@ def _fused_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec,
     return a_lefts.reshape(N - 1, M, D, M).to(dtype), label_final, f, metrics
 
 
-def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg):
+def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg,
+                        dp=None):
     """One full right sweep (label leg moves 0 -> N-1). Returns
     ``(new_sites, new_label_site, f_first, f_final, metrics)`` with per-step
-    metric series of length N-1."""
+    metric series of length N-1. With ``dp`` the xla engine's steps sum over
+    the data ranks (``two_site_update``); the callers send the other engines
+    the whole batch (``parallel/dp.py``)."""
     N, M, D, _ = sites.shape
     B = phi.shape[0]
     dtype, dev = sites.dtype, sites.device
@@ -414,11 +464,12 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
         label, l_env, E2, f = label_site, e0.expand(B, M), torch.outer(e0, e0), f0
         lefts, steps = [], []
         for step in range(N - 1):
-            A_left, label, l_env, E2, f, metr = two_site_update(
-                label, sites[step + 1], phi_t[step], phi_t[step + 1], l_env,
-                r_envs[step + 2], E2, no_r2 if r2 is None else r2[step + 2],
-                y_onehot, f, lr, weight_dec, ranks[step], T, cfg,
-            )
+            with torch.profiler.record_function(STEP_RANGE) if dp is not None else _NO_RANGE:
+                A_left, label, l_env, E2, f, metr = two_site_update(
+                    label, sites[step + 1], phi_t[step], phi_t[step + 1], l_env,
+                    r_envs[step + 2], E2, no_r2 if r2 is None else r2[step + 2],
+                    y_onehot, f, lr, weight_dec, ranks[step], T, cfg, dp=dp,
+                )
             lefts.append(A_left)
             steps.append(metr)
         A_lefts, label_final, f_final = torch.stack(lefts), label, f
@@ -431,21 +482,22 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
     return new_sites, label_final, f0, f_final, metrics
 
 
-def _sweep(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg, left_dir):
+def _sweep(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg, left_dir, dp=None):
     """A right sweep, or a left one as the right sweep of the mirrored chain."""
     if left_dir:
         new_s, new_l, f0, f_fin, m = _sweep_right_arrays(
             _mirror_sites(sites).contiguous(),
             _mirror_label(label_site).contiguous(),
             phi.flip(1),
-            y_onehot, lr, weight_dec, ranks, T, cfg,
+            y_onehot, lr, weight_dec, ranks, T, cfg, dp=dp,
         )
         return (
             _mirror_sites(new_s).contiguous(),
             _mirror_label(new_l).contiguous(),
             f0, f_fin, m,
         )
-    return _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg)
+    return _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg,
+                               dp=dp)
 
 
 def _scalar(v, mps: MPS) -> torch.Tensor:

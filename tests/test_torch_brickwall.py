@@ -216,12 +216,43 @@ def test_resume_equals_an_uninterrupted_run(tmp_path):
 
 
 def test_mesh_forms_raise_naming_item_11():
-    t = _carry(_jax_model())
+    """The mesh forms are ported (item 11): in a world of one on the CPU the
+    sharded epoch and the sharded step give the single-device results, and
+    the functions of the JAX package's mesh forms over one device."""
+    import jax
+    import jax.numpy as jnp
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.parallel.mesh import make_mesh
+    from tensornetworkforml_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from tensornetworkforml_tpu.train.brickwall import BrickConfig as JB
+    from tensornetworkforml_tpu.train.brickwall import brick_epoch as j_epoch
+    from tensornetworkforml_tpu.train.brickwall import make_sharded_brick_step as j_step
+
+    j = _jax_model()
+    t = _carry(j)
     x, y = _data()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbw.brick_epoch(t, x[None], y[None], 0.05, 1e-4, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbw.make_sharded_brick_step(object(), 0.1, tbw.BrickConfig())
+    cfg = tbw.BrickConfig(act_fn=t.act_fn, loss_fn=t.loss_fn)
+    phi, y1h = psi_embed(torch.as_tensor(x)), torch.as_tensor(_y1h(y))
+    mesh = make_mesh(device="cpu")
+    try:
+        epoch, _ = tbw.brick_epoch(t, x[None], y[None], 0.05, 1e-4, mesh=mesh)
+        sites, w, _ = tbw.make_sharded_brick_step(mesh, t.T, cfg)(t.sites, t.w, phi, y1h, 0.05,
+                                                                  1e-4)
+    finally:
+        dist.destroy_process_group()
+    want, _ = tbw.brick_epoch(t, x[None], y[None], 0.05, 1e-4)
+    assert torch.equal(epoch.sites, want.sites) and torch.equal(epoch.w, want.w)
+    one, _ = tbw.brick_sweep(t, phi, y1h, 0.05, 1e-4, cfg)
+    assert torch.equal(sites, one.sites) and torch.equal(w, one.w)
+    j_mesh = j_make_mesh(shape=(1, 1), devices=jax.devices()[:1])
+    fresh = (x, _data(seed=9)[0])
+    jf, _ = j_epoch(j, x[None], y[None], 0.05, 1e-4, mesh=j_mesh)
+    _same_function(epoch.sites, epoch.w, jf.sites, jf.w, fresh)
+    js, jw, _ = j_step(j_mesh, j.T, JB(act_fn=j.act_fn, loss_fn=j.loss_fn))(
+        j.sites, j.w, jnp.asarray(phi.numpy()), jnp.asarray(_y1h(y)), jnp.float64(0.05),
+        jnp.float64(1e-4))
+    _same_function(sites, w, js, jw, fresh)
 
 
 def test_unknown_split_and_reduced_precision_raise():

@@ -19,10 +19,13 @@ on the CPU (``--device cpu``).
   and the JAX package's sketch matrix for the CholQR splits) end within 0.05
   of the JAX CLI's validation and test accuracy, and save a boundary
   checkpoint.
-* ``--dp`` raises ``NotImplementedError`` naming its item, and
+* ``--dp`` defaults to the card and raises without one, and
   ``--trainer brickwall`` with a split other than cholqr or rangefinder
   exits, both before any data is loaded; without a card the default device
   raises.
+* ``--dp --device cpu`` (a world of one over gloo) from the JAX package's
+  initial MPS ends within 0.05 of the JAX CLI's ``--dp`` run (its batch
+  split over 8 virtual devices).
 """
 
 import argparse
@@ -226,7 +229,7 @@ def test_training_mnist_from_the_jax_init_matches_the_jax_cli(tmp_path, monkeypa
 @pytest.mark.parametrize("flags,error,match", [
     (["--trainer", "brickwall", "--svd_method", "polar"], SystemExit, "cholqr or rangefinder"),
     (["--trainer", "brickwall", "--svd_method", "svd"], SystemExit, "cholqr or rangefinder"),
-    (["--dp"], NotImplementedError, "item 11"),
+    (["--dp"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_flags_raise_before_loading_data(flags, error, match, tmp_path):
     # no --synthetic and no data: loading anything would raise FileNotFoundError
@@ -282,3 +285,40 @@ def test_default_device_is_the_card(tmp_path):
         _port("training_mnist").main(["--data_dir", str(tmp_path / "none")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _port("training_diagonals").main(["--n_samples", "50", "--out", str(tmp_path / "m.npz")])
+
+
+def test_dp_from_the_jax_init_matches_the_jax_cli(tmp_path, monkeypatch):
+    """``--dp``: the port in a world of one on the CPU, the JAX package over
+    its 8 virtual devices, from the same initial MPS and sketch matrix."""
+    import jax
+    import jax.numpy as jnp
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.ops import svd as tsvd
+    from tensornetworkforml_tpu.models.mps import product_init
+    from tensornetworkforml_tpu.ops.svd import _rangefinder_omega
+
+    tm = _port("training_mnist")
+
+    def jax_init(seed, N, M, act_fn, loss_fn, x_cal, device):
+        j = product_init(jax.random.PRNGKey(seed), N=N, M=M, L=10, act_fn=act_fn,
+                         loss_fn=loss_fn, dtype=jnp.float32, calibration_x=x_cal)
+        return mps_from_numpy(np.asarray(j.sites), np.asarray(j.label_site), l_pos=j.l_pos,
+                              act_fn=j.act_fn, loss_fn=j.loss_fn, T=j.T, device=device,
+                              dtype=torch.float32)
+
+    def omega(J, q, dtype=torch.float32, device=None):
+        om = np.array(_rangefinder_omega(J, q, jnp.float32))
+        return torch.as_tensor(om).to(dtype=dtype, device=device)
+
+    monkeypatch.setattr(tm, "initial_mps", jax_init)
+    monkeypatch.setattr(tsvd, "rangefinder_omega", omega)
+    monkeypatch.chdir(tmp_path)
+    args = ["--synthetic", "--pool", "--M", "8", "--n_epochs", "1", "--batch_size", "128",
+            "--seed", "0", "--dp"]
+    val, test = tm.main(args + ["--out", str(tmp_path / "t.npz"), "--device", "cpu"])
+    assert not dist.is_initialized()  # the CLI's own world of one is gone
+    jval, jtest = _jax("training_mnist").main(args + ["--out", str(tmp_path / "j.npz")])
+    assert len(val) == len(jval) == 1
+    assert abs(val[-1] - jval[-1]) <= ACC_TOL and abs(test - jtest) <= ACC_TOL
+    assert os.path.exists(tmp_path / "t.npz")

@@ -103,9 +103,28 @@ def test_label_off_site_zero_takes_the_plain_route(jax_model):
 
 
 def test_unported_inputs_raise_naming_the_roadmap(tmp_path, jax_model):
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.parallel.mesh import make_mesh
+
     t = mps_from_numpy(np.asarray(jax_model.sites), np.asarray(jax_model.label_site))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        Predictor(t, mesh=object())
+    # mesh serving is ported (item 11): in a world of one on the CPU it scores
+    # as the single-device predictor does, and as the JAX package's predictor
+    # over a mesh of one device
+    import jax
+
+    from tensornetworkforml_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    mesh = make_mesh(device="cpu")
+    try:
+        got = Predictor(t, batch_size=8, mesh=mesh).scores(_requests())
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, Predictor(t, batch_size=8, device="cpu").scores(
+        _requests()))
+    jax_mesh = jax_make_mesh(shape=(1, 1), devices=jax.devices()[:1])
+    np.testing.assert_allclose(got, _jax_predictor(jax_model, mesh=jax_mesh).scores(_requests()),
+                               rtol=RTOL, atol=ATOL)
     with pytest.raises(NotImplementedError, match="queue 1 item 12"):
         Predictor.from_checkpoint(str(tmp_path / "model.dat"))
     # the boundary-label family is ported (item 10): it is served, not refused

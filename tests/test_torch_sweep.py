@@ -300,14 +300,15 @@ def test_step_metrics_off_gives_zeros():
 
 # ---- what is not ported, and the hybrid engine's own limits ---------------
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(dist_split="cholqr"), "queue 1 item 11"),
-    (dict(matmul_precision="tensorfloat32"), "full float32"),
+@pytest.mark.parametrize("kw,error,match", [
+    # dist_split is ported: without its mesh it refuses as the JAX package does
+    (dict(dist_split="cholqr"), ValueError, "dist_mesh"),
+    (dict(matmul_precision="tensorfloat32"), NotImplementedError, "full float32"),
 ])
-def test_unported_configurations_raise_naming_their_item(kw, match):
+def test_unported_configurations_raise_naming_their_item(kw, error, match):
     _, t, x, y = _models(N=6, M=4, L=2, B=8, dtype="float32")
     cfg = tsw.SweepConfig(**{**_polar("xla"), **kw})
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         tsw.sweep_once(t, psi_embed(torch.as_tensor(x, dtype=torch.float32)),
                        torch.as_tensor(np.eye(2, dtype=np.float32)[y].T), 0.05, 0.0, cfg)
 

@@ -227,8 +227,21 @@ def test_fused_epoch_checks_its_arguments():
         tep.fused_epoch(t, x[:16].reshape(1, 16, N), y[:16].reshape(1, 16), 0.1, 0.0)
     with pytest.raises(ValueError, match="site 0"):
         tep.fused_epoch(t.replace(l_pos=N - 1), x.reshape(2, 16, N), y.reshape(2, 16), 0.1, 0.0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        tep.fused_epoch(t, x.reshape(2, 16, N), y.reshape(2, 16), 0.1, 0.0, mesh=object())
+    # mesh epochs are ported (item 11): a world of one on the CPU gives the
+    # unsharded epoch
+    import torch.distributed as dist
+
+    from tensornetworkforml_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    try:
+        got, accs, met = tep.fused_epoch(t, x.reshape(2, 16, N), y.reshape(2, 16), 0.1, 0.0,
+                                         mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    want, w_accs, w_met = tep.fused_epoch(t, x.reshape(2, 16, N), y.reshape(2, 16), 0.1, 0.0)
+    assert torch.equal(got.sites, want.sites) and torch.equal(got.label_site, want.label_site)
+    assert torch.equal(accs, w_accs) and torch.allclose(met["MAE"], w_met["MAE"], rtol=1e-12)
 
 
 @pytest.mark.parametrize("split,dtype,n_batches,tols", [
