@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its data layer, its
-training CLI, its off-path trainers and its mesh path (parallel/) once on an
-NVIDIA GPU and check them.
+training CLI, its off-path trainers, its mesh path (parallel/), the
+reference's .dat checkpoints, its profiling utilities and its examples once
+on an NVIDIA GPU and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
@@ -160,6 +161,27 @@ phase trains the same model at M=512. Phases:
                 on the whole; fused_epoch(mesh=...) against the unsharded
                 epoch; Predictor(mesh=...) through K3 against the
                 single-device Predictor bit for bit.
+ 21. reference -- the flagship that phase 4 served, written as a reference
+                .dat pickle (save_reference_pickle) and served by
+                Predictor.from_checkpoint on the default device at batch 256
+                and 8192: through K3, as many launches as phase 4, the same
+                scores bit for bit; a .dat of the flagship after one sweep
+                (label at N-1) served on the plain path (no K3 launch, the
+                JAX package's rule) against the model in memory;
+                Network.load of the .dat against Network.load of the .npz;
+                cli/test_diagonals.py on a .dat of phase 13's diagonals model
+                against its .npz run;
+ 22. profiling -- utils/profiling.py, run right after phase 4, before any
+                other phase profiles: device_trace of one flagship batch,
+                whose trace must hold K3's kernel; the same batch by a Timer
+                scope with sync and by CUDA events inside it (the scope must
+                not read less); profile_model at its defaults and at the
+                flagship (batch 256), Timer.report() printed; at the end of
+                the script the traced batch again, its device events printed;
+ 23. examples -- the six port examples (examples/torch/) in this process with
+                TNML_SMOKE=1 on the card (05 on 2048 + 512 images): each
+                prints an accuracy and keeps its model on cuda; 02 serves
+                through K3.
 
 Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
@@ -167,7 +189,8 @@ train_model, the teacher task's student, the training CLI, the M=512 training,
 the M=512 gram-free sweep, the boundary-label CLIs and sweeps and the autodiff
 steps, which must launch no kernel, the ensemble's training and its direct
 sum's serving, the --dp CLI, the data-parallel and dist-polar sweeps, the mesh
-epoch and mesh serving) and read just after it; the comparisons with plain versions happen outside those windows.
+epoch and mesh serving, the .dat serving at each batch size, the swept .dat's
+and each example) and read just after it; the comparisons with plain versions happen outside those windows.
 K4a's, K4b's and K5's bound is 3xTF32's (three tensor-core products per
 float32 one at the TF32 rate), and K8's that of its K5 stage plus K1's float32
 iteration; their rows of the kernels line also give the float32 bound and the
@@ -235,6 +258,7 @@ from tensornetworkforml_torch.train.autodiff import (
 from tensornetworkforml_torch.train.trainer import evaluate_accuracy, train_model
 from tensornetworkforml_torch.utils import checkpoint as ckpt_mod
 from tensornetworkforml_torch.utils.checkpoint import load_any_checkpoint, save_checkpoint
+from tensornetworkforml_torch.utils.profiling import Timer, device_trace, profile_model
 
 N, M, D, L = 196, 128, 2, 10  # the flagship: cli/training_mnist.py --M 128
 STEPS = N - 1  # two-site steps per sweep
@@ -752,7 +776,8 @@ def counts() -> dict:
 def phase_serve(mps, requests: np.ndarray) -> dict:
     """Serve the flagship through Predictor.from_checkpoint on the card: the
     default batch of 256 on requests of REQUEST_SIZES, then bulk scoring of
-    BIG requests at batch_size=BIG; K3's launches at each batch size."""
+    BIG requests at batch_size=BIG. Returns K3's launches at each batch size
+    and the scores served, by number of requests."""
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "flagship.npz")
@@ -786,7 +811,7 @@ def phase_serve(mps, requests: np.ndarray) -> dict:
           f"{REQUEST_SIZES} at batch {BATCH} ({chain_form(M, BATCH)}), and {BIG} requests at "
           f"batch {BIG} ({chain_form(M, BIG)}): shapes ok, scores match the plain Predictor "
           f"within {TOL:g} x max|f|; K3 launches {launches[BATCH]} and {launches[BIG]}")
-    return launches
+    return {"launches": launches, "served": served}
 
 
 def flagship_cfg(engine: str) -> SweepConfig:
@@ -1901,7 +1926,8 @@ def phase_cli(x_fresh) -> dict:
         if not ok:
             fail("test_diagonals on the saved model disagrees with the model in memory")
     return {"launches": launched["polar_iterate"], "ms_per_batch": ms_batch,
-            "val_acc": val_acc[-1], "test_acc": test_acc}
+            "val_acc": val_acc[-1], "test_acc": test_acc, "diag_model": trained.mps,
+            "diag_acc_mae": (acc, mae)}
 
 
 # ---- phase 14: the large-bond path (M=512) -------------------------------------
@@ -3450,6 +3476,237 @@ def phase_mesh(mps0, x_tr, y_tr, x_fresh, requests) -> dict:
     return out
 
 
+# ---- phases 21-23: reference pickles, profiling, the port's examples --------
+
+REF_MAE_TOL = 1e-5  # test_diagonals' MAE: a .dat loads in float64, the .npz in float32
+PROFILE_ITERS = 2  # profile_model's timed iterations at the flagship
+EXAMPLES = ("01_train_diagonals_functional.py", "02_fused_epoch_and_serving.py",
+            "03_data_parallel_mesh.py", "04_onesite_full_resolution.py",
+            "05_production_recipe.py", "06_brickwall_parallel_bonds.py")
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "torch")
+# 05 has no smoke size: 4 epochs on synthetic_mnist's 6000 + 1000 images take
+# ~54 s of host-bound sweeps on the card; here it runs on a cut of them
+EXAMPLE_05_IMAGES = dict(n_train=2048, n_test=512)
+
+
+def phase_reference(mps, requests, serve, cli, xb, yb, x_fresh) -> dict:
+    """The flagship that [serve] served, written as a reference .dat pickle by
+    save_reference_pickle and served by Predictor.from_checkpoint on the
+    default device at both batch sizes, with [serve]'s calls: through K3, as
+    many launches, the same scores bit for bit (float32 round-trips through
+    float64 elem at the padded width). A swept model (label at N-1) as a
+    .dat takes the plain path, as in the JAX package. Network.load of the .dat
+    against Network.load of the .npz; test_diagonals on a .dat of [cli]'s
+    diagonals model against its .npz run."""
+    t0 = time.perf_counter()
+    launches, served = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dat = os.path.join(tmp, "flagship.dat")
+        ckpt_mod.save_reference_pickle(mps, dat)
+        reset_counts()
+        pred = Predictor.from_checkpoint(dat)  # the default device: the card
+        pred.warmup()
+        served.update((n, pred.scores(requests[:n])) for n in REQUEST_SIZES)
+        pred.predict(requests[:BATCH])
+        launches[BATCH] = counts()["right_env_chain"]
+        reset_counts()
+        bulk = Predictor.from_checkpoint(dat, batch_size=BIG)
+        served[BIG] = bulk.scores(requests[:BIG])
+        launches[BIG] = counts()["right_env_chain"]
+        on_kernel = (pred.device.type == "cuda" and pred.use_kernel and bulk.use_kernel
+                     and pred.mps.dtype == torch.float32)
+        same = all(np.array_equal(got, serve["served"][n]) for n, got in served.items())
+        ok = on_kernel and same and launches == serve["launches"]
+        print(f"[reference] save_reference_pickle of [serve]'s flagship "
+              f"({os.path.getsize(dat) / 1e6:.1f} MB), Predictor.from_checkpoint(.dat) on "
+              f"{pred.device} (kernel {pred.use_kernel}, {pred.mps.dtype}) on requests "
+              f"{REQUEST_SIZES} at batch {BATCH} and {BIG} at batch {BIG}: K3 launches "
+              f"{launches[BATCH]} and {launches[BIG]} ([serve]: {serve['launches'][BATCH]} and "
+              f"{serve['launches'][BIG]}); scores bit for bit [serve]'s: {same} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the .dat flagship did not serve as [serve] did through K3")
+
+        swept = one_sweep(mps, xb, yb, "xla")[0]
+        dat2 = os.path.join(tmp, "swept.dat")
+        ckpt_mod.save_reference_pickle(swept, dat2)
+        reset_counts()
+        p2 = Predictor.from_checkpoint(dat2)
+        got = p2.scores(requests[:BATCH])
+        k3 = counts()["right_env_chain"]
+        want = Predictor(swept).scores(requests[:BATCH])
+        err = float(np.abs(got - want).max())
+        tol = TOL * float(np.abs(want).max())
+        ok = (k3 == 0 and not p2.use_kernel and p2.device.type == "cuda" and err <= tol
+              and np.isfinite(got).all())
+        print(f"[reference] a .dat of the flagship after one sweep (l_pos {swept.l_pos}) on "
+              f"{p2.device}: the plain path ran (K3 serves a label at site 0 only, the JAX "
+              f"package's rule), K3 launches {k3}; against the model in memory "
+              f"max|diff| {err:.3g} <= {tol:.3g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the swept .dat did not serve on the plain path as the model in memory")
+
+        npz = os.path.join(tmp, "flagship.npz")
+        save_checkpoint(mps, npz)
+        f_npz = Network.load(npz).forward(x_fresh).elem
+        n32 = Network.load(dat, dtype=torch.float32)
+        n64 = Network.load(dat)
+        f32, f64 = n32.forward(x_fresh).elem, n64.forward(x_fresh.double()).elem
+        same = torch.equal(f32, f_npz)
+        gap = float((f64 - f_npz.double()).abs().max() / f_npz.abs().max())
+        ok = (same and gap <= TOL and n64.mps.dtype == torch.float64
+              and n32.device.type == n64.device.type == "cuda")
+        print(f"[reference] Network.load(.dat) on {n64.device}: float32 (dtype given) scores "
+              f"bit for bit Network.load(.npz)'s: {same}; float64 (the default) within "
+              f"{gap:.3g} x max|f| (tol {TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("Network.load of the .dat disagrees with Network.load of the .npz")
+
+        diag = os.path.join(tmp, "diag.dat")
+        ckpt_mod.save_reference_pickle(cli["diag_model"], diag)
+        acc, mae = cli_diag_test.main(["--filename", diag, "--seed", str(SEED + 1)])
+        acc0, mae0 = cli["diag_acc_mae"]
+        ok = acc == acc0 and abs(mae - mae0) <= REF_MAE_TOL * abs(mae0)
+        print(f"[reference] test_diagonals --filename diag.dat on the card: acc {acc:.4f}, mae "
+              f"{mae:.6f}; its .npz run in [cli]: acc {acc0:.4f}, mae {mae0:.6f} (the .dat "
+              f"loads in float64, the .npz in float32; MAE tol {REF_MAE_TOL:g} relative) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("test_diagonals on the .dat disagrees with its .npz run")
+    seconds = time.perf_counter() - t0
+    print(f"[reference] {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds}
+
+
+def timer_report(summary: dict) -> str:
+    """``Timer.report()`` of a ``profile_model`` table."""
+    timer = Timer()
+    for name, s in summary.items():
+        timer.totals[name], timer.counts[name] = s["total_s"], s["count"]
+    return timer.report()
+
+
+def traced_batch(pred, x) -> dict:
+    """One flagship serving batch inside device_trace: whether the trace was
+    written, and the device events it holds (K3's among them)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            pred._chunk_scores(x)
+        written = os.path.exists(prof.trace_path)
+        in_file = written and "chain_kernel" in open(prof.trace_path).read()
+        size_kb = os.path.getsize(prof.trace_path) / 1e3 if written else 0.0
+    on_device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"written": written, "in_file": in_file, "kb": size_kb, "on_device": on_device,
+            "k3": [n for n in on_device if "chain_kernel" in n]}
+
+
+def phase_profiling(mps, requests) -> dict:
+    """utils/profiling.py on the card, before any other phase profiles: one
+    flagship Predictor batch inside device_trace, whose trace must hold K3;
+    the same batch timed by a Timer scope with sync and by CUDA events
+    recorded inside it (the scope must not read less); profile_model at its
+    defaults and at the flagship."""
+    t0 = time.perf_counter()
+    pred = Predictor(mps, batch_size=BATCH)
+    pred.warmup()
+    x = torch.as_tensor(requests[:BATCH], device=DEVICE)
+    tr = traced_batch(pred, x)
+    ok = tr["written"] and tr["in_file"] and bool(tr["k3"])
+    print(f"[profiling] device_trace of one flagship batch: trace written ({tr['kb']:.1f} kB) "
+          f"{tr['written']}, {len(tr['on_device'])} device events, K3's among them: "
+          f"{tr['k3'][:1]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("device_trace's trace misses K3's kernel")
+
+    timer = Timer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with timer.scope("serve", sync=x):
+        start.record()
+        out = pred._chunk_scores(x)
+        end.record()
+    event_ms, scope_ms = start.elapsed_time(end), 1e3 * timer.totals["serve"]
+    ok = scope_ms >= event_ms and bool(torch.isfinite(out).all())
+    print(f"[profiling] one flagship Predictor batch (B={BATCH}, K3): Timer scope with sync "
+          f"{scope_ms:.4f} ms, CUDA events inside it {event_ms:.4f} ms "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the Timer scope ended before the card's work did")
+
+    for label, kw in (("its defaults (N=25, M=20, L=2, batch 16, 10 iters)", {}),
+                      (f"the flagship (N={N}, M={M}, L={L}, batch {BATCH}, {PROFILE_ITERS} "
+                       f"iters)", dict(N=N, M=M, L=L, batch=BATCH, iters=PROFILE_ITERS))):
+        table = profile_model(**kw)
+        iters = kw.get("iters", 10)
+        if set(table) != {"forward", "full_sweep", "env_stack", "svd_split"} or any(
+                s["count"] != iters for s in table.values()):
+            fail(f"profile_model at {label} gave {table}")
+        print(f"[profiling] profile_model() at {label} on the card:\n" + timer_report(table))
+    seconds = time.perf_counter() - t0
+    print(f"[profiling] {seconds:.1f} s")
+    return {"seconds": seconds, "pred": pred, "x": x}
+
+
+def late_trace(prof: dict) -> None:
+    """The same traced batch again after every other phase has profiled. A
+    device_trace this late in the script has recorded no device events on
+    the card, where it records them early in the process and in a process
+    that only repeats the mesh phase's profiling sequence, so it is printed,
+    not held (PERF.md section 7)."""
+    tr = traced_batch(prof["pred"], prof["x"])
+    print(f"[profiling] device_trace of the same batch after the other phases: "
+          f"{len(tr['on_device'])} device events, K3's among them: {len(tr['k3'])} (printed, "
+          f"not held)")
+
+
+def phase_examples() -> dict:
+    """The port's six examples (examples/torch/) on the card, in this
+    process (runpy) with TNML_SMOKE=1 (05 on EXAMPLE_05_IMAGES): each exits
+    cleanly, prints an accuracy and keeps its model on cuda; 02 serves
+    through K3."""
+    import io
+    import runpy
+    import sys
+
+    t0 = time.perf_counter()
+    out = {}
+    for name in EXAMPLES:
+        script = os.path.join(EXAMPLES_DIR, name)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        cut = {}
+        if name.startswith("05"):
+            cut = EXAMPLE_05_IMAGES
+            print(f"[examples] {name} on synthetic_mnist({cut}) in place of its 6000 + 1000 "
+                  f"images")
+        reset_counts()
+        with mock.patch.dict(os.environ, {"TNML_SMOKE": "1"}), \
+                mock.patch.object(sys, "argv", [script]), \
+                mock.patch.object(mnist_mod, "synthetic_mnist",
+                                  functools.partial(mnist_mod.synthetic_mnist, **cut)), \
+                contextlib.redirect_stdout(buf):
+            glb = runpy.run_path(script, run_name="__main__")
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in counts().items() if n}
+        seconds = time.perf_counter() - t1
+        text = buf.getvalue()
+        model = glb.get("mps", glb.get("model"))
+        ok = "accuracy" in text and model.sites.device.type == "cuda"
+        if name.startswith("02"):
+            ok = ok and glb["pred"].use_kernel and launched.get("right_env_chain", 0) > 0
+            out["k3_launches"] = launched.get("right_env_chain", 0)
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        print(f"[examples] {name}: {seconds:.1f} s, model on {model.sites.device}, launches "
+              f"{launched}; last line: {last} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"example {name} printed no accuracy, left the card or missed K3")
+        out[name] = seconds
+    seconds = time.perf_counter() - t0
+    print(f"[examples] {seconds:.1f} s")
+    out["seconds"] = seconds
+    return out
+
+
 T_START = time.perf_counter()
 OTHER_CSRC = None  # --other-csrc: a csrc directory whose kernels are timed beside these
 
@@ -3479,7 +3736,9 @@ def main() -> None:
     captured = capture_step(mps, torch.as_tensor(x_tr[:BATCH], device=DEVICE),
                             torch.as_tensor(y_tr[:BATCH], device=DEVICE), CAPTURE_STEP)
     errs = phase_kernel(mps, x_big, captured)
-    launches = {("right_env_chain", B): n for B, n in phase_serve(mps, requests).items()}
+    serve = phase_serve(mps, requests)
+    launches = {("right_env_chain", B): n for B, n in serve["launches"].items()}
+    prof = phase_profiling(mps, requests)
     launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
                                                            x_fresh)
     launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
@@ -3534,6 +3793,9 @@ def main() -> None:
     launches[ens_key], errs[ens_key], ms[ens_key] = (
         ensemble["launches"], ensemble["err"], ensemble["ms"])
     mesh = phase_mesh(mps, x_tr, y_tr, x_fresh, requests)
+    ref = phase_reference(mps, requests, serve, cli, xb, yb, x_fresh)
+    examples = phase_examples()
+    late_trace(prof)
 
     pe = (len(polar_split._pe_schedule(*polar_split._PE_LOOP)),
           len(polar_split._pe_schedule(*polar_split._PE_FINAL)))
@@ -3645,6 +3907,8 @@ def main() -> None:
             row["parent_ms"] = ms.get(("parent", key[1])) if m_chain == M else None
             if key == ("right_env_chain", BATCH):  # Predictor(mesh=...) in a world of one
                 row["launches_mesh"] = mesh["serve_launches"]
+            if m_chain == M:  # Predictor.from_checkpoint of the flagship's .dat
+                row["launches_dat"] = ref["launches"][key[1]]
         elif ("parent", key) in ms:  # the other build's, timed in turns
             row["parent_ms"] = ms[("parent", key)]
         if name == "two_site_step":  # at M=256 B=64 (K1 at I = 512 inside)
@@ -3693,7 +3957,9 @@ def main() -> None:
           f"data-parallel sweep {mesh['dp_ms']:.1f} ms (world of one; in turns "
           f"{mesh['turns_ms']['mesh']:.1f} against sweep_once's {mesh['turns_ms']['single']:.1f}), "
           f"dist-polar sweep {mesh['dist_ms']:.1f} ms, --dp CLI {mesh['cli']['ms_per_batch']:.1f} "
-          f"ms/batch; {time.perf_counter() - T_START:.1f} s in all")
+          f"ms/batch; [reference] {ref['seconds']:.1f} s, [profiling] {prof['seconds']:.1f} s, "
+          f"[examples] {examples['seconds']:.1f} s (example 02's K3 launches "
+          f"{examples['k3_launches']}); {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,8 @@
     python -m tensornetworkforml_torch.cli.test_binary_MNIST \
         --filename trained_MNIST_model.npz --data_dir datasets
 
-Reads the ``.npz`` checkpoints both packages write; the reference's ``.dat``
-pickles are not ported yet (ROADMAP queue 1 item 12). Runs on the CUDA card
+Reads the ``.npz`` checkpoints both packages write and the reference's
+``.dat`` pickles (e.g. ``--filename trained_MNIST_model.dat``). Runs on the CUDA card
 unless given ``--device cpu``.
 """
 
@@ -20,7 +20,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Evaluate a trained MPS model on 0-vs-1 MNIST"
     )
     p.add_argument("--filename", type=str, default="trained_MNIST_model.npz",
-                   help="Filename of the trained network (.npz)")
+                   help="Filename of the trained network (.npz, or a reference .dat)")
     p.add_argument("--data_dir", type=str, default="datasets",
                    help="folder holding the MNIST IDX files")
     p.add_argument("--synthetic", action="store_true",

@@ -3,8 +3,8 @@
     python -m tensornetworkforml_torch.cli.test_diagonals \
         --filename trained_diag_model.npz
 
-Reads the ``.npz`` checkpoints both packages write; the reference's ``.dat``
-pickles are not ported yet (ROADMAP queue 1 item 12). Runs on the CUDA card
+Reads the ``.npz`` checkpoints both packages write and the reference's
+``.dat`` pickles (e.g. ``--filename trained_diag_model.dat``). Runs on the CUDA card
 unless given ``--device cpu``.
 """
 
@@ -22,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Evaluate a trained MPS model on fresh diagonals data"
     )
     p.add_argument("--filename", type=str, default="trained_diag_model.npz",
-                   help="Filename of the trained network (.npz)")
+                   help="Filename of the trained network (.npz, or a reference .dat)")
     p.add_argument("--n_samples", type=int, default=1000,
                    help="how many test images to synthesize")
     p.add_argument("--sigma", type=float, default=0.6,

@@ -322,13 +322,18 @@ class Network:
 
     @classmethod
     def load(cls, path: str, dtype=None, device=None) -> "Network":
-        """Load an ``.npz`` checkpoint onto ``device`` (``None``: the card)."""
-        from tensornetworkforml_torch.utils.checkpoint import load_checkpoint
+        """Load an ``.npz`` checkpoint, or a reference ``.dat`` pickle (float64
+        unless ``dtype`` is given), onto ``device`` (``None``: the card)."""
+        from tensornetworkforml_torch.utils.checkpoint import (
+            load_checkpoint,
+            mps_from_reference_pickle,
+        )
 
-        if path.endswith(".dat"):
-            raise NotImplementedError(
-                "reference .dat pickles are not ported yet (ROADMAP queue 1 item 12)"
-            )
+        device = resolve_device(device)
         obj = cls.__new__(cls)
-        obj.mps = load_checkpoint(path, dtype=dtype, device=resolve_device(device))
+        if path.endswith(".dat"):
+            obj.mps = mps_from_reference_pickle(path, dtype=dtype or torch.float64,
+                                                device=device)
+        else:
+            obj.mps = load_checkpoint(path, dtype=dtype, device=device)
         return obj

@@ -104,16 +104,18 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, device=None, **kwargs) -> "Predictor":
-        """Serve an ``.npz`` checkpoint of either family (float32) on ``device``
-        (``None``: the card)."""
-        from tensornetworkforml_torch.utils.checkpoint import load_any_checkpoint
+        """Serve a checkpoint (float32) on ``device`` (``None``: the card): an
+        ``.npz`` of either family, or a reference ``.dat`` pickle."""
+        from tensornetworkforml_torch.utils.checkpoint import (
+            load_any_checkpoint,
+            mps_from_reference_pickle,
+        )
 
-        if path.endswith(".dat"):
-            raise NotImplementedError(
-                "reference .dat pickles are not ported yet (ROADMAP queue 1 item 12)"
-            )
         device = resolve_device(device)
-        mps = load_any_checkpoint(path, dtype=torch.float32, device=device)
+        if path.endswith(".dat"):
+            mps = mps_from_reference_pickle(path, dtype=torch.float32, device=device)
+        else:
+            mps = load_any_checkpoint(path, dtype=torch.float32, device=device)
         return cls(mps, device=device, **kwargs)
 
     def warmup(self) -> None:

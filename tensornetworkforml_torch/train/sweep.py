@@ -139,6 +139,16 @@ def _factored_route(cfg: SweepConfig, M: int, D: int) -> bool:
     )
 
 
+def batch_gradient(left_part: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The two-site gradient's sum over the batch rows: ``left_part (B, M*D)``
+    and ``w (B, L*D*M)`` give ``(M*D, L*D*M)``. Under data parallelism each
+    rank sums its own rows here and the step's all-reduce adds the ranks'
+    sums, so the whole batch is summed in another order than in one call:
+    the tests reach the single-device sweep in that order through this
+    name."""
+    return left_part.T @ w
+
+
 def two_site_update(
     label_site, A2, x1, x2, l_env, r_env, E2, r2_step, y_onehot, f,
     lr, weight_dec, rank, T: float, cfg: SweepConfig, dp=None,
@@ -179,7 +189,7 @@ def two_site_update(
     left_part = (l_env[:, :, None] * x1[:, None, :]).reshape(B, M * D)
     right_part = (x2[:, :, None] * r_env[:, None, :]).reshape(B, D * M)
     w_t = loss_der.T[:, :, None] * right_part[:, None, :]  # (B, L, D*M)
-    deltaB = (left_part.T @ w_t.reshape(B, L * D * M)).reshape(M, D, L, D, M)
+    deltaB = batch_gradient(left_part, w_t.reshape(B, L * D * M)).reshape(M, D, L, D, M)
     sums = [(f_act.argmax(dim=0) == y_onehot.argmax(dim=0)).to(dtype).sum(),
             (y_onehot - f_act).abs().sum(), f.abs().sum()] if cfg.step_metrics else []
     if dp is not None:  # the gradient and the metric sums: ONE all-reduce a step

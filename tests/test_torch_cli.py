@@ -5,8 +5,8 @@ on the CPU (``--device cpu``).
   dests, defaults, types, choices, nargs and constants -- plus ``--device``
   and nothing else.
 * Every case of ``tests/test_cli.py`` is mirrored on the port, with the same
-  arguments and thresholds. The reference ``.dat`` case becomes a check that
-  the port refuses such a file naming the item that ports it.
+  arguments and thresholds. The reference ``.dat`` case reads a ``.dat``
+  the JAX package wrote through both packages' evaluation CLIs.
 * Models cross between the packages through the shared ``.npz`` files: a
   model trained by either ``training_diagonals`` gives the same
   ``(acc, mae)`` through both ``test_diagonals`` within 1e-6 (float32
@@ -106,17 +106,44 @@ def test_training_and_test_diagonals_cli(tmp_path, monkeypatch):
     assert 0.0 <= mae <= 1.0
 
 
+def _jax_reference_pickle(path, N, seed):
+    """A calibrated float64 JAX model on ``N`` pixels, written by the JAX
+    package as a reference ``.dat`` pickle; returns the model."""
+    import jax
+    import jax.numpy as jnp
+
+    from tensornetworkforml_tpu.models.mps import mps_init
+    from tensornetworkforml_tpu.ops.embedding import psi_embed
+    from tensornetworkforml_tpu.utils.checkpoint import save_reference_pickle
+
+    phi = psi_embed(jnp.asarray(np.random.default_rng(seed).random((16, N))))
+    mps = mps_init(jax.random.PRNGKey(seed), N=N, M=4, L=2, normalize=True,
+                   calibration_phi=phi, act_fn="softmax", loss_fn="full_cross_ent",
+                   dtype=jnp.float64)
+    save_reference_pickle(mps, str(path))
+    return mps
+
+
 def test_test_diagonals_cli_refuses_reference_pickle(tmp_path):
-    """The JAX CLI loads the reference's ``.dat`` pickles; the port does not
-    yet, and says which item ports them."""
-    (tmp_path / "trained_diag_model.dat").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port("test_diagonals").main([
-            "--filename", str(tmp_path / "trained_diag_model.dat"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port("test_binary_MNIST").main([
-            "--filename", str(tmp_path / "trained_diag_model.dat"), "--synthetic",
-            "--device", "cpu"])
+    """Both evaluation CLIs read the reference's ``.dat`` pickles (the JAX
+    package's ``test_cli.py`` case): on a ``.dat`` the JAX package wrote they
+    give the JAX CLIs' accuracy and MAE within ``CROSS_TOL``, and on the
+    ``.npz`` of the same model the same as on the ``.dat``."""
+    from tensornetworkforml_tpu.utils.checkpoint import save_checkpoint as jax_save
+
+    for cli, argv, N in (
+        ("test_diagonals", ["--n_samples", "300", "--sigma", "0.5", "--seed", "1"], 25),
+        ("test_binary_MNIST", ["--synthetic"], 196),
+    ):
+        dat = tmp_path / f"{cli}.dat"
+        mps = _jax_reference_pickle(dat, N, seed=N)
+        jax_save(mps, str(tmp_path / f"{cli}.npz"))
+        got = _port(cli).main(["--filename", str(dat), *argv, "--device", "cpu"])
+        want = _jax(cli).main(["--filename", str(dat), *argv])
+        np.testing.assert_allclose(got, want, atol=CROSS_TOL)
+        npz = _port(cli).main(["--filename", str(tmp_path / f"{cli}.npz"), *argv,
+                               "--device", "cpu"])
+        np.testing.assert_allclose(got, npz, atol=CROSS_TOL)
 
 
 @pytest.mark.parametrize("recipe,n_epochs,min_val,min_acc", [

@@ -230,8 +230,21 @@ def test_save_and_load_both_ways(tmp_path):
                                       getattr(t.mps, name).numpy())
     f32 = Network.load(str(tmp_path / "jax.npz"), dtype=torch.float32, device="cpu")
     assert f32.mps.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Network.load(str(tmp_path / "model.dat"), device="cpu")
+    # a reference .dat pickle the JAX package wrote: the JAX Network.load's
+    # arrays and settings, float64 unless asked
+    from tensornetworkforml_tpu.utils.checkpoint import save_reference_pickle
+
+    save_reference_pickle(j.mps, str(tmp_path / "model.dat"))
+    dat = Network.load(str(tmp_path / "model.dat"), device="cpu")
+    jdat = JNet.load(str(tmp_path / "model.dat"))
+    assert dat.mps.dtype == torch.float64
+    for name in ("sites", "label_site"):
+        np.testing.assert_array_equal(getattr(dat.mps, name).numpy(),
+                                      np.asarray(getattr(jdat.mps, name)))
+    assert (dat.l_pos, dat.act_fn, dat.loss_fn, dat.T) == (jdat.l_pos, jdat.act_fn,
+                                                           jdat.loss_fn, jdat.T)
+    assert Network.load(str(tmp_path / "model.dat"), dtype=torch.float32,
+                        device="cpu").mps.dtype == torch.float32
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Network.load(str(tmp_path / "jax.npz"))

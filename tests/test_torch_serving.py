@@ -125,8 +125,14 @@ def test_unported_inputs_raise_naming_the_roadmap(tmp_path, jax_model):
     jax_mesh = jax_make_mesh(shape=(1, 1), devices=jax.devices()[:1])
     np.testing.assert_allclose(got, _jax_predictor(jax_model, mesh=jax_mesh).scores(_requests()),
                                rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        Predictor.from_checkpoint(str(tmp_path / "model.dat"))
+    # a reference .dat pickle of the same model serves the same scores
+    from tensornetworkforml_torch.utils.checkpoint import save_reference_pickle
+
+    save_reference_pickle(t, str(tmp_path / "model.dat"))
+    np.testing.assert_array_equal(
+        Predictor.from_checkpoint(str(tmp_path / "model.dat"), batch_size=8,
+                                  device="cpu").scores(_requests()),
+        Predictor(t, batch_size=8, device="cpu").scores(_requests()))
     # the boundary-label family is ported (item 10): it is served, not refused
     from tensornetworkforml_torch.utils.checkpoint import boundary_from_numpy
 
