@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its data layer, its
 training CLI, its off-path trainers, its mesh path (parallel/), the
-reference's .dat checkpoints, its profiling utilities and its examples once
-on an NVIDIA GPU and check them.
+reference's .dat checkpoints, its profiling utilities, its examples, its
+reduced-precision modes and the pure-teacher comparison once on an NVIDIA
+GPU and check them.
 
 Run from the root of the repository, on a machine with one CUDA card:
 
@@ -23,7 +24,8 @@ phase trains the same model at M=512. Phases:
                 all started together) and print ptxas's report for each;
                 the libraries of K4a, K4b and K5 (libpolar_sketch) and of K8
                 (libpolar_iterate) must hold tf32 warpgroup products (HGMMA)
-                in their SASS;
+                in their SASS, and each one-pass GEMM kernel of
+                libpolar_sketch a third as many as its 3xTF32 form;
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 K3 (chain) at the serving shapes (the form that ran named at
                 each: latency or throughput), K2 (pre-split step) and K1
@@ -182,6 +184,25 @@ phase trains the same model at M=512. Phases:
                 TNML_SMOKE=1 on the card (05 on 2048 + 512 images): each
                 prints an accuracy and keeps its model on cuda; 02 serves
                 through K3.
+ 24. precision -- the reduced-precision modes ("tensorfloat32": TF32 for
+                cuBLAS's float32 products): K4a and K4b's one-pass TF32 form
+                (gramfree_sketch_tf32, gramfree_gmul_tf32) on the M=512 step's
+                inputs and a ragged shape against the plain product of their
+                TF32-rounded operands and float64, gramfree_split(precision=
+                "tensorfloat32") at M=512 (one launch each, Q held by its
+                isometry), both timed in turns with the 3xTF32 form, cuBLAS
+                in TF32 and the plain version (their own rows of the kernels
+                line); flagship sweeps under "tensorfloat32" on the xla,
+                hybrid and fused engines against the IEEE sweeps (the same
+                K1, K2 and K7 launches, other bits, the gap to the float64
+                sweep beside the IEEE one's, fresh accuracy within 0.02,
+                ms in turns, the switch off after each); an M=512 factored
+                sweep under it (its iteration in IEEE) by quality; a brick
+                and a one-site sweep under it against their float64 runs.
+ 25. teacher_pm0 -- scripts/torch_teacher_pm0.py at N=64, M=16, 2048
+                samples, 12 epochs, seed 0 on the card: the models on cuda,
+                the accuracies finite, the brick wall above the two-site
+                sweep on test accuracy.
 
 Launch counts are set to 0 just before each path (serve at each batch size, train, hybrid,
 fused, the M=256 hybrid sweep, two-stage, all-in-one split, the rangefinder
@@ -190,11 +211,13 @@ the M=512 gram-free sweep, the boundary-label CLIs and sweeps and the autodiff
 steps, which must launch no kernel, the ensemble's training and its direct
 sum's serving, the --dp CLI, the data-parallel and dist-polar sweeps, the mesh
 epoch and mesh serving, the .dat serving at each batch size, the swept .dat's
-and each example) and read just after it; the comparisons with plain versions happen outside those windows.
+and each example, the reduced-precision split, each reduced sweep and the
+teacher script) and read just after it; the comparisons with plain versions happen outside those windows.
 K4a's, K4b's and K5's bound is 3xTF32's (three tensor-core products per
 float32 one at the TF32 rate), and K8's that of its K5 stage plus K1's float32
 iteration; their rows of the kernels line also give the float32 bound and the
-share of the 3xTF32 bound the kernel reaches.
+share of the 3xTF32 bound the kernel reaches. The one-pass rows' bound is one
+tensor-core product per float32 one at the TF32 rate.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero before printing either, and any failed check exits
@@ -258,6 +281,7 @@ from tensornetworkforml_torch.train.autodiff import (
 from tensornetworkforml_torch.train.trainer import evaluate_accuracy, train_model
 from tensornetworkforml_torch.utils import checkpoint as ckpt_mod
 from tensornetworkforml_torch.utils.checkpoint import load_any_checkpoint, save_checkpoint
+from tensornetworkforml_torch.utils.precision import matmul_precision
 from tensornetworkforml_torch.utils.profiling import Timer, device_trace, profile_model
 
 N, M, D, L = 196, 128, 2, 10  # the flagship: cli/training_mnist.py --M 128
@@ -599,6 +623,29 @@ def tensor_core_check() -> None:
             fail(f"{kernels} not on the tensor cores: no HGMMA TF32 instruction in lib{name}")
         print(f"[build] {kernels}: lib{name} SASS holds {len(mma)} tf32 tensor-core "
               f"instructions (3xTF32 wgmma), e.g. {mma[0]}")
+        if name == "polar_sketch":
+            one_pass_check(sass.stdout)
+
+
+def one_pass_check(sass: str) -> None:
+    """K4a's and K4b's one-pass TF32 form: each one-pass GEMM kernel of
+    libpolar_sketch (tc_gemm_kernel<..., 1>: K4a and K4b's two halves) holds
+    HGMMA ... TF32, a third as many as its 3xTF32 instantiation (<..., 3>)."""
+    count, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[-1].strip()
+            count[fn] = 0
+        elif fn and "HGMMA" in ln and "TF32" in ln:
+            count[fn] += 1
+    one = {f: n for f, n in count.items() if "tc_gemm_kernel" in f and "Li1E" in f}
+    three = {f: count.get(f.replace("Li1E", "Li3E"), 0) for f in one}
+    if len(one) != 3 or not all(n > 0 and 3 * n == three[f] for f, n in one.items()):
+        fail(f"K4a/K4b's one-pass TF32 form: HGMMA TF32 counts {one} against the 3xTF32 "
+             f"form's {three}")
+    print(f"[build] K4a/K4b one-pass TF32: {len(one)} GEMM kernels of libpolar_sketch hold "
+          f"{sorted(one.values())} HGMMA TF32 instructions each, a third of the 3xTF32 "
+          f"instantiations' {sorted(three.values())}")
 
 
 # ---- phase 3: each kernel against its plain version ------------------------
@@ -757,6 +804,8 @@ WRAPPERS = {
     "two_site_presplit": presplit_kernel.two_site_presplit,
     "gramfree_sketch": polar_split.gramfree_sketch,
     "gramfree_gmul": polar_split.gramfree_gmul,
+    "gramfree_sketch_tf32": polar_split.gramfree_sketch_tf32,
+    "gramfree_gmul_tf32": polar_split.gramfree_gmul_tf32,
     "polar_sketch_gram": polar_split.polar_sketch_gram,
     "rangefinder_split": split_kernel.rangefinder_split,
     "two_site_step": step_kernel.two_site_step,
@@ -814,9 +863,9 @@ def phase_serve(mps, requests: np.ndarray) -> dict:
     return {"launches": launches, "served": served}
 
 
-def flagship_cfg(engine: str) -> SweepConfig:
+def flagship_cfg(engine: str, precision: str = "default") -> SweepConfig:
     return SweepConfig(act_fn="linear", loss_fn="MSE", L2_flag=False, split_mode="canonical",
-                       svd_method="polar", engine=engine)
+                       svd_method="polar", engine=engine, matmul_precision=precision)
 
 
 def plain_versions():
@@ -829,8 +878,8 @@ def plain_versions():
             mock.patch.object(sweep_mod, "two_site_sweep", step_kernel.two_site_sweep_reference))
 
 
-def one_sweep(mps, x, y, engine, plain=False):
-    cfg = flagship_cfg(engine)
+def one_sweep(mps, x, y, engine, plain=False, precision="default"):
+    cfg = flagship_cfg(engine, precision)
     args = (mps, psi_embed(x), one_hot_labels(y, L, torch.float32), LR, WD, cfg)
     if not plain:
         return sweep_once(*args)
@@ -1932,8 +1981,8 @@ def phase_cli(x_fresh) -> dict:
 
 # ---- phase 14: the large-bond path (M=512) -------------------------------------
 
-def large_cfg(factored: str) -> SweepConfig:
-    return flagship_cfg("xla")._replace(factored_update=factored)
+def large_cfg(factored: str, precision: str = "default") -> SweepConfig:
+    return flagship_cfg("xla", precision)._replace(factored_update=factored)
 
 
 def capture_large(mps, xb, yb) -> dict:
@@ -2111,9 +2160,9 @@ def plain_reductions():
             mock.patch.object(polar_split, "gramfree_gmul", polar_split.gramfree_gmul_reference))
 
 
-def large_sweep(mps, xb, yb, factored, plain=False):
+def large_sweep(mps, xb, yb, factored, plain=False, precision="default"):
     args = (mps, psi_embed(xb), one_hot_labels(yb, L, torch.float32), LR, WD,
-            large_cfg(factored))
+            large_cfg(factored, precision))
     if not plain:
         return sweep_once(*args)
     p1, p2 = plain_reductions()
@@ -2949,7 +2998,8 @@ def phase_brickwall(x_tr, y_tr, x_fresh) -> dict:
                         ms)
     print(f"[brickwall] brick sweep at the flagship: {ms:.1f} ms (median of "
           f"{', '.join(f'{t:.1f}' for t in times)}), {CLI_BATCH / ms * 1e3:.0f} samples/s")
-    return {**cli, "sweep_ms": ms, "idle": idle, "gap": held["gap"]}
+    return {**cli, "sweep_ms": ms, "idle": idle, "gap": held["gap"],
+            "held_inputs": (model, phi, y1h, x_fresh)}
 
 
 def phase_onesite(x_tr, y_tr, x_fresh) -> dict:
@@ -2987,12 +3037,12 @@ def phase_onesite(x_tr, y_tr, x_fresh) -> dict:
     def sweep(m, p, y):
         return onesite_mod.onesite_sweep(m, p, y, ONESITE_LONG_LR, WD, False, long_cfg)[0]
 
+    x_long_fresh = torch.as_tensor(x_full[CLI_BATCH:CLI_BATCH + BATCH], device=DEVICE)
     held = hold_f64("onesite", f"one-site sweep N={ONESITE_LONG_N} M={ONESITE_LONG_M} "
                     f"B={CLI_BATCH} renorm",
-                    sweep, long_model, phi_l, y1h_l,
-                    torch.as_tensor(x_full[CLI_BATCH:CLI_BATCH + BATCH], device=DEVICE),
-                    ONESITE_F64_TOL)
-    return {**cli, "sweep_ms": ms, "idle": idle, "long_ms": held["ms"], "gap": held["gap"]}
+                    sweep, long_model, phi_l, y1h_l, x_long_fresh, ONESITE_F64_TOL)
+    return {**cli, "sweep_ms": ms, "idle": idle, "long_ms": held["ms"], "gap": held["gap"],
+            "held_inputs": (long_model, phi_l, y1h_l, x_long_fresh)}
 
 
 def phase_autodiff(mps, brick_model, x_tr, y_tr) -> dict:
@@ -3707,6 +3757,340 @@ def phase_examples() -> dict:
     return out
 
 
+# ---- phase 24: the reduced-precision modes --------------------------------------
+
+# [precision]: the reduced name the phase runs (utils/precision.py: TF32 for
+# cuBLAS's float32 products on the card; "high" and "bfloat16" do the same)
+PRECISION = "tensorfloat32"
+# One-pass K4a and K4b against the plain product of their TF32-rounded operands
+# (in float64; K4b's t rounded to float32 and TF32 between its halves, as the
+# kernel stores and rereads it): only the order of the float32 sums differs,
+# and t can round the other way on a TF32 tie (measured up to 1.4e-5 of the
+# output's max at M=512, H100). Against float64: each product rounds its
+# operands to TF32's 10-bit mantissa (measured up to 4.7e-4; cuBLAS in TF32
+# reads the same), so ONE_PASS_TOL is about two such roundings.
+ONE_PASS_PLAIN_TOL, ONE_PASS_TOL = 5e-5, 1e-3
+# A flagship sweep in TF32 against the IEEE sweep on the same batch: accuracy
+# on BATCH fresh requests within PRECISION_ACC_TOL (5 of 256).
+PRECISION_ACC_TOL = 0.02
+# The brick and one-site sweeps in TF32 against their float64 runs: 3.7e-3 and
+# 4.8e-3 of max|f| measured (H100), where two TF32 runs part by 7.6e-4 and
+# 4.6e-3 (w rescaled by 1 + RF_PERTURB) and each sweep moves f by ~1 of
+# max|f|; the IEEE sweeps read ~1e-5 against [brickwall]'s and [onesite]'s
+# 1e-3. 3e-2 leaves a sixfold margin and still catches a fault in a pair's
+# update.
+BRICK_TF32_TOL, ONESITE_TF32_TOL = 3e-2, 3e-2
+
+
+def tf32_rounded(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> tf32 as ``cvt.rna.tf32.f32`` (ties away): the low 13 bits of
+    the mantissa cleared, on the tensor's device."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def one_pass_plain(bmat, om, y1):
+    """K4a's and K4b's one-pass products from TF32-rounded operands in float64."""
+    bt = tf32_rounded(bmat).double()
+    t = (bt.T @ tf32_rounded(y1).double()).float()
+    return bt @ tf32_rounded(om).double(), bt @ tf32_rounded(t).double()
+
+
+def compare_one_pass(name, bmat, om, y1) -> dict:
+    """One-pass K4a and K4b against the TF32-rounded plain product
+    (ONE_PASS_PLAIN_TOL) and float64 (ONE_PASS_TOL), n2 against float64
+    (RED_TOL); their error against the float32 plain version, the 3xTF32
+    form's against float64 and cuBLAS in TF32 against float64 printed."""
+    y0, n2 = polar_split.gramfree_sketch_tf32(bmat, om)
+    z = polar_split.gramfree_gmul_tf32(bmat, y1)
+    y0_3, z_3 = polar_split.gramfree_sketch(bmat, om)[0], polar_split.gramfree_gmul(bmat, y1)
+    with matmul_precision(PRECISION):
+        lib_y0, lib_z = bmat @ om, bmat @ (bmat.T @ y1)
+    torch.cuda.synchronize()
+    tf_y0, tf_z = one_pass_plain(bmat, om, y1)
+    b64 = bmat.double()
+    f_y0, f_n2 = polar_split.gramfree_sketch_reference(b64, om.double())
+    f_z = polar_split.gramfree_gmul_reference(b64, y1.double())
+    p_y0 = polar_split.gramfree_sketch_reference(bmat, om)[0]
+    p_z = polar_split.gramfree_gmul_reference(bmat, y1)
+    out, ok = {}, True
+    n2_rel = float((n2.double() - f_n2).abs().max() / f_n2.abs().max())
+    for kernel, got, tf, f64, plain, three, lib in (
+            ("gramfree_sketch_tf32", y0, tf_y0, f_y0, p_y0, y0_3, lib_y0),
+            ("gramfree_gmul_tf32", z, tf_z, f_z, p_z, z_3, lib_z)):
+        if got.shape != f64.shape or not torch.isfinite(got).all():
+            fail(f"{kernel} {name}: output {tuple(got.shape)} not finite or wrong shape")
+        scale = float(f64.abs().max())
+        rel = {k: float((v.double() - ref).abs().max()) / scale
+               for k, v, ref in (("tf32", got, tf), ("f64", got, f64), ("3x", three, f64),
+                                 ("lib", lib, f64))}
+        good = rel["tf32"] <= ONE_PASS_PLAIN_TOL and rel["f64"] <= ONE_PASS_TOL
+        ok = ok and good
+        out[kernel] = float((got - plain).abs().max())
+        print(f"[precision] {kernel} {name}: against the TF32-rounded plain product "
+              f"{rel['tf32']:.3g} (tol {ONE_PASS_PLAIN_TOL:g}), against float64 {rel['f64']:.3g} "
+              f"(tol {ONE_PASS_TOL:g}){', n2 %.3g (tol %g)' % (n2_rel, RED_TOL) if kernel == 'gramfree_sketch_tf32' else ''}"
+              f" {'ok' if good else 'FAIL'}; max|kernel - float32 plain| {out[kernel]:.3g}; "
+              f"3xTF32 form against float64 {rel['3x']:.3g}, cuBLAS in TF32 {rel['lib']:.3g}")
+    if not ok or n2_rel > RED_TOL:
+        fail(f"{name}: the one-pass K4a or K4b disagrees with its TF32-rounded plain product")
+    return out
+
+
+def one_pass_turns(name, one, three, plain, library, reps=20):
+    """The one-pass kernel in turns with the 3xTF32 form, cuBLAS in TF32 and
+    the plain version (IEEE float32): forward, then backward; mean ms of
+    (one-pass, plain, cuBLAS TF32, 3xTF32)."""
+    fns = {"one": one, "three": three, "lib": library, "plain": plain}
+    ms = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            ms[k].append(cuda_ms(fns[k], reps))
+    print(f"[timing] {name}: one-pass kernel {ms['one'][0] * 1e3:.1f} / {ms['one'][1] * 1e3:.1f} "
+          f"us, 3xTF32 form {ms['three'][0] * 1e3:.1f} / {ms['three'][1] * 1e3:.1f} us, cuBLAS "
+          f"in TF32 {ms['lib'][0] * 1e3:.1f} / {ms['lib'][1] * 1e3:.1f} us, plain (IEEE) "
+          f"{ms['plain'][0] * 1e3:.1f} / {ms['plain'][1] * 1e3:.1f} us")
+    return tuple(sum(ms[k]) / 2 for k in ("one", "plain", "lib", "three"))
+
+
+def live_isometry(q: torch.Tensor) -> float:
+    qd = q.double()
+    gq = qd.T @ qd
+    live = torch.diagonal(gq) > 0.5
+    n = int(live.sum())
+    return float((gq[live][:, live] - torch.eye(n, dtype=torch.float64, device=q.device))
+                 .abs().max()) if n else 0.0
+
+
+def precision_sweeps(mps, xb, yb, x_fresh, y_fresh, ref) -> dict:
+    """Flagship sweeps under PRECISION on the three engines, each against the
+    IEEE sweep on the same batch: the same kernel launches, other bits, the
+    gap to the float64 sweep ``ref`` beside the IEEE sweep's, fresh accuracy
+    within PRECISION_ACC_TOL, the TF32 switch off after each, ms in turns."""
+    want = {"xla": {"polar_iterate": STEPS}, "hybrid": {"polar_iterate": STEPS,
+                                                       "two_site_presplit": STEPS},
+            "fused": {"two_site_step": STEPS}}
+    out = {}
+    for engine, kernels in want.items():
+        runs, launched, ms = {}, {}, {"ieee": [], "tf32": []}
+        for mode in ("ieee", "tf32", "tf32", "ieee"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = one_sweep(mps, xb, yb, engine,
+                            precision=PRECISION if mode == "tf32" else "default")
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+            launched[mode] = counts()
+            runs.setdefault(mode, res)
+            if torch.backends.cuda.matmul.allow_tf32:
+                fail(f"the TF32 switch is still on after a {mode} {engine} sweep")
+        a, b = runs["tf32"], runs["ieee"]
+        if launched["tf32"] != launched["ieee"] or any(
+                launched["tf32"][k] != n for k, n in kernels.items()):
+            fail(f"[precision] {engine} sweep launches: {PRECISION} {launched['tf32']}, IEEE "
+                 f"{launched['ieee']} (want {kernels} in both)")
+        fresh = [mps_forward(r[0], psi_embed(x_fresh)) for r in (a, b)]
+        if torch.equal(a[2], b[2]) or torch.equal(*fresh):
+            fail(f"[precision] the {PRECISION} {engine} sweep gives the IEEE sweep's bits: "
+                 "TF32 never ran")
+        gap_t, gap_i = sweep_gaps(f"precision {engine}", a, ref, x_fresh), sweep_gaps(
+            f"precision {engine} ieee", b, ref, x_fresh)
+        acc_t, acc_i = fresh_accuracy(a[0], x_fresh, y_fresh), fresh_accuracy(b[0], x_fresh,
+                                                                              y_fresh)
+        ok = abs(acc_t - acc_i) <= PRECISION_ACC_TOL
+        print(f"[precision] flagship sweep engine={engine} under {PRECISION!r}: launches "
+              f"{ {k: launched['tf32'][k] for k in kernels} } as the IEEE sweep's; bits differ "
+              f"from it; against the float64 sweep f_final {gap_t[0]:.3g}, fresh scores "
+              f"{gap_t[1]:.3g} of max|f| (IEEE {gap_i[0]:.3g}, {gap_i[1]:.3g}); fresh accuracy "
+              f"{acc_t:.4f} vs IEEE {acc_i:.4f} (tol {PRECISION_ACC_TOL:g}) "
+              f"{'ok' if ok else 'FAIL'}; ms per sweep in turns IEEE {ms['ieee'][0]:.1f} / "
+              f"{ms['ieee'][1]:.1f}, {PRECISION} {ms['tf32'][0]:.1f} / {ms['tf32'][1]:.1f}; "
+              f"TF32 switch off after each")
+        if not ok:
+            fail(f"[precision] the {PRECISION} {engine} sweep's accuracy moved by "
+                 f"{abs(acc_t - acc_i):.3g}")
+        out[engine] = {"ms": sum(ms["tf32"]) / 2, "ms_ieee": sum(ms["ieee"]) / 2,
+                       "gap": gap_t[1], "gap_ieee": gap_i[1], "launches": launched["tf32"]}
+    return out
+
+
+def precision_factored(big, xb, yb, x_fresh, y_fresh) -> None:
+    """One M=512 sweep through the factored route under PRECISION, held by
+    quality against the IEEE factored sweep (QUALITY_F_TOL, QUALITY_ACC_TOL);
+    its iteration runs in train/factored_step.py's _ITERATE_MODES (IEEE), read
+    by a spy inside its Newton-Schulz passes; no kernel launches."""
+    from tensornetworkforml_torch.train import factored_step as fs_mod
+
+    seen = []
+    real = fs_mod._polar_ns_greedy
+
+    def spy(*args):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*args)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(fs_mod, "_polar_ns_greedy", spy):
+        red = large_sweep(big, xb, yb, "auto", precision=PRECISION)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    ieee = large_sweep(big, xb, yb, "auto")
+    want_tf32 = [m == "tensorfloat32" for m in fs_mod._ITERATE_MODES]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    if not (torch.isfinite(red[0].sites).all() and torch.isfinite(red[2]).all()):
+        fail(f"the {PRECISION} M={M_LARGE} factored sweep left non-finite values")
+    batch = rel(red[2], ieee[2])
+    fresh = rel(mps_forward(red[0], psi_embed(x_fresh)), mps_forward(ieee[0], psi_embed(x_fresh)))
+    acc_r, acc_i = fresh_accuracy(red[0], x_fresh, y_fresh), fresh_accuracy(ieee[0], x_fresh,
+                                                                            y_fresh)
+    modes = sorted(set(seen))
+    ok = (max(batch, fresh) <= QUALITY_F_TOL and abs(acc_r - acc_i) <= QUALITY_ACC_TOL
+          and sum(launched.values()) == 0 and modes == sorted(set(want_tf32)))
+    print(f"[precision] M={M_LARGE} factored sweep under {PRECISION!r} ({ms:.1f} ms): f_final "
+          f"{batch:.3g}, fresh scores {fresh:.3g} of max|f| from the IEEE factored sweep (tol "
+          f"{QUALITY_F_TOL:g}); fresh accuracy {acc_r:.4f} vs {acc_i:.4f} (tol "
+          f"{QUALITY_ACC_TOL:g}); the iteration's {len(seen)} Newton-Schulz calls ran with "
+          f"the TF32 switch {modes} (_ITERATE_MODES {fs_mod._ITERATE_MODES}); kernel launches "
+          f"{sum(launched.values())} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the {PRECISION} M={M_LARGE} factored sweep failed its hold")
+
+
+def phase_precision(mps, big, large, xb, yb, x_fresh, y_fresh, brick, onesite) -> dict:
+    """[precision]: K4a and K4b's one-pass TF32 form against its TF32-rounded
+    plain product and float64 at the M=512 step's inputs and a ragged shape,
+    gramfree_split(precision=PRECISION) at M=512 (the main path of the one-pass
+    form: one launch each), the two timed in turns with the 3xTF32 form and
+    cuBLAS in TF32; flagship sweeps under PRECISION on the three engines; an
+    M=512 factored sweep; a brick and a one-site sweep against float64."""
+    t_phase = time.perf_counter()
+    bmat, om = large["k4a"]
+    _, y1 = large["k4b"]
+    I, J = bmat.shape
+    shape = f"I={I} J={J} q={M_LARGE}"
+    errs = compare_one_pass(f"M={M_LARGE} step {CAPTURE_STEP} {shape}", bmat, om, y1)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    ri, rj, rq = 77, 1000, 47
+    b_r = torch.randn((ri, rj), generator=gen) / np.sqrt(rj)
+    b_r[:, [0, 3, rj - 1]] = 0.0
+    om_r = torch.randn((rj, rq), generator=gen)
+    y1_r = torch.linalg.qr(torch.randn((ri, rq), generator=gen))[0].contiguous()
+    ragged = compare_one_pass(f"ragged I={ri} J={rj} q={rq}", b_r.to(DEVICE), om_r.to(DEVICE),
+                              y1_r.to(DEVICE))
+    errs = {k: max(errs[k], ragged[k]) for k in errs}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    q1, r1 = polar_split.gramfree_split(bmat, M_LARGE, precision=PRECISION)
+    torch.cuda.synchronize()
+    launched = counts()
+    q3, r3 = polar_split.gramfree_split(bmat, M_LARGE)
+    if launched["gramfree_sketch_tf32"] != 1 or launched["gramfree_gmul_tf32"] != 1 or (
+            launched["gramfree_sketch"] or launched["gramfree_gmul"]):
+        fail(f"gramfree_split(precision={PRECISION!r}) launched {launched}")
+    iso1, iso3 = live_isometry(q1), live_isometry(q3)
+    rec = float((q1 @ r1 - q3 @ r3).abs().max() / bmat.abs().max())
+    proj = float((q1.double() @ q1.double().T - q3.double() @ q3.double().T).abs().max())
+    ok = bool(torch.isfinite(r1).all()) and iso1 <= max(2 * iso3, K1_ISO_TOL)
+    print(f"[precision] gramfree_split(precision={PRECISION!r}) on the M={M_LARGE} step: K4a "
+          f"and K4b one-pass 1 launch each (3xTF32 form 0); live-column isometry {iso1:.3g} "
+          f"(the 3xTF32 split's {iso3:.3g}; tol max(2 x it, {K1_ISO_TOL:g})) "
+          f"{'ok' if ok else 'FAIL'}; against the 3xTF32 split: Q R {rec:.3g} of max|B|, "
+          f"projector {proj:.3g}")
+    if not ok:
+        fail(f"gramfree_split(precision={PRECISION!r}) left Q {iso1:.3g} from an isometry")
+
+    ms = {}
+
+    def lib_y0():
+        with matmul_precision(PRECISION):
+            return bmat @ om
+
+    def lib_z():
+        with matmul_precision(PRECISION):
+            return bmat @ (bmat.T @ y1)
+
+    ms["gramfree_sketch_tf32"] = one_pass_turns(
+        f"gramfree_sketch_tf32 {shape}", lambda: polar_split.gramfree_sketch_tf32(bmat, om),
+        lambda: polar_split.gramfree_sketch(bmat, om),
+        lambda: polar_split.gramfree_sketch_reference(bmat, om), lib_y0)
+    ms["gramfree_gmul_tf32"] = one_pass_turns(
+        f"gramfree_gmul_tf32 {shape}", lambda: polar_split.gramfree_gmul_tf32(bmat, y1),
+        lambda: polar_split.gramfree_gmul(bmat, y1),
+        lambda: polar_split.gramfree_gmul_reference(bmat, y1), lib_z)
+
+    sweeps = precision_sweeps(mps, xb, yb, x_fresh, y_fresh, float64_sweep(mps, xb, yb))
+    precision_factored(big, xb, yb, x_fresh, y_fresh)
+
+    def brick_sweep(m, p, y):
+        return brick_mod.brick_sweep(m, p, y, BRICK_LR, WD, brick_mod.BrickConfig(
+            split_method="cholqr", matmul_precision=PRECISION))[0]
+
+    def onesite_sweep(m, p, y):
+        return onesite_mod.onesite_sweep(m, p, y, ONESITE_LONG_LR, WD, False,
+                                         onesite_mod.OneSiteConfig(renorm=True,
+                                                                   matmul_precision=PRECISION))[0]
+
+    bm, bphi, by1h, bx = brick["held_inputs"]
+    b_held = hold_f64("precision", f"brick sweep N={N} M={M} B={CLI_BATCH} under {PRECISION!r} "
+                      f"(the IEEE sweep's gap {brick['gap']:.3g})", brick_sweep, bm, bphi, by1h,
+                      bx, BRICK_TF32_TOL, f32_ridge=True)
+    om_, ophi, oy1h, ox = onesite["held_inputs"]
+    o_held = hold_f64("precision", f"one-site sweep N={ONESITE_LONG_N} M={ONESITE_LONG_M} "
+                      f"B={CLI_BATCH} renorm under {PRECISION!r} (the IEEE sweep's gap "
+                      f"{onesite['gap']:.3g})", onesite_sweep, om_, ophi, oy1h, ox,
+                      ONESITE_TF32_TOL)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("the TF32 switch is on after the [precision] phase")
+    seconds = time.perf_counter() - t_phase
+    print(f"[precision] phase {seconds:.1f} s")
+    return {"errs": errs, "ms": ms, "launches": {k: launched[k] for k in (
+        "gramfree_sketch_tf32", "gramfree_gmul_tf32")}, "sweeps": sweeps,
+        "brick_gap": b_held["gap"], "onesite_gap": o_held["gap"], "seconds": seconds}
+
+
+# ---- phase 25: the pure-teacher comparison ---------------------------------------
+
+# scripts/torch_teacher_pm0.py at the configuration of results/teacher_pm0.json
+TEACHER_PM0_ARGS = ["--N", "64", "--M", "16", "--n_train", "2048", "--n_epochs", "12",
+                    "--trainers", "brickwall,twosite", "--seed", "0"]
+
+
+def phase_teacher_pm0() -> dict:
+    """[teacher_pm0]: scripts/torch_teacher_pm0.py once on the card (about 100
+    brick sweeps and as many two-site sweeps at N=64, M=16): the models on the
+    card, the accuracies finite, the brick wall above the two-site sweep."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_teacher_pm0.py")
+    spec = importlib.util.spec_from_file_location("torch_teacher_pm0", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    reset_counts()
+    out = script.main(TEACHER_PM0_ARGS)
+    seconds = time.perf_counter() - t0
+    res = out["results"]
+    accs = [v for r in res.values() for v in r["val_acc"] + [r["test_acc"]]]
+    ok = (all(d.startswith("cuda") for d in out["model_devices"].values())
+          and np.isfinite(accs).all()
+          and res["brickwall"]["test_acc"] > res["twosite"]["test_acc"])
+    print(f"[teacher_pm0] scripts/torch_teacher_pm0.py {' '.join(TEACHER_PM0_ARGS)} on "
+          f"{out['device_name']}: {seconds:.1f} s; models on {out['model_devices']}; test "
+          f"accuracy brick wall {res['brickwall']['test_acc']:.4f}, two-site sweep "
+          f"{res['twosite']['test_acc']:.4f} (the JAX package on the CPU: 0.5244 and 0.1468, "
+          f"results/teacher_pm0.json); kernel launches {sum(counts().values())} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("[teacher_pm0]: models off the card, non-finite accuracies or the brick wall "
+             "not above the two-site sweep")
+    return {"seconds": seconds, "brick": res["brickwall"]["test_acc"],
+            "twosite": res["twosite"]["test_acc"]}
+
+
 T_START = time.perf_counter()
 OTHER_CSRC = None  # --other-csrc: a csrc directory whose kernels are timed beside these
 
@@ -3787,6 +4171,11 @@ def main() -> None:
 
     brick = phase_brickwall(x_tr, y_tr, x_fresh)
     onesite = phase_onesite(x_tr, y_tr, x_fresh)
+    prec = phase_precision(mps, big, large, xb, yb, x_fresh, y_fresh, brick, onesite)
+    for name in ("gramfree_sketch_tf32", "gramfree_gmul_tf32"):
+        launches[name], errs[name], ms[name] = (prec["launches"][name], prec["errs"][name],
+                                                prec["ms"][name])
+    teacher_pm0 = phase_teacher_pm0()
     autodiff = phase_autodiff(mps, brick["model"], x_tr, y_tr)
     ensemble = phase_ensemble(teacher["task"])
     ens_key = ("right_env_chain", BATCH, ensemble["M"])
@@ -3807,6 +4196,8 @@ def main() -> None:
         "two_site_presplit": presplit_work(L, M * D, M, D * M, BATCH, M),
         "gramfree_sketch": sketch_work(I_big, J_big, M_LARGE, False),
         "gramfree_gmul": gmul_work(I_big, J_big, M_LARGE),
+        "gramfree_sketch_tf32": sketch_work(I_big, J_big, M_LARGE, False),
+        "gramfree_gmul_tf32": gmul_work(I_big, J_big, M_LARGE),
         "polar_sketch_gram": sketch_work(M * D, L * D * M, M, True),
         "rangefinder_split": rf_work(M * D, L * D * M, min(M + 8, M * D), M),
         "two_site_step": step_work(L, M, BATCH, pe),
@@ -3826,9 +4217,14 @@ def main() -> None:
     k8_shapes = {"polar_split": (M * D, L * D * M, M),
                  ("polar_split", M_WIDE): (M_WIDE * D, L * D * M_WIDE, M_WIDE)}
 
+    # K4a and K4b's one-pass form: the tensor part once at the TF32 rate
+    one_pass = ("gramfree_sketch_tf32", "gramfree_gmul_tf32")
+
     def bound(name):
         if name in k8_shapes:
             return k8_bound_ms(*k8_shapes[name], pe)
+        if name in one_pass:
+            return bound_ms(*work[name], TF32_FLOPS)
         return (tc_bound_ms if name in tensor_core else bound_ms)(*work[name])
 
     for name, (flops, nbytes) in work.items():
@@ -3845,6 +4241,11 @@ def main() -> None:
             line += (f"; 3xTF32 bound {t_ms * 1e3:.2f} us ({t_by}) at {TC_PASSES} x the tensor "
                      f"part and {TF32_FLOPS / 1e12:g} TFLOP/s; kernel {ms[name][0] * 1e3:.1f} us, "
                      f"3xTF32 bound / kernel = {t_ms / ms[name][0]:.3f}")
+        elif name in one_pass:
+            t_ms, t_by = bound(name)
+            line += (f"; one-pass TF32 bound {t_ms * 1e3:.2f} us ({t_by}) at "
+                     f"{TF32_FLOPS / 1e12:g} TFLOP/s; kernel {ms[name][0] * 1e3:.1f} us, "
+                     f"TF32 bound / kernel = {t_ms / ms[name][0]:.3f}")
         elif name in ms:
             line += f"; kernel {ms[name][0] * 1e3:.1f} us, bound / kernel = {b_ms / ms[name][0]:.4f}"
         print(line)
@@ -3869,6 +4270,10 @@ def main() -> None:
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:321", "gramfree_sketch"),
         ("gramfree_gmul", "polar_sketch.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:334", "gramfree_gmul"),
+        ("gramfree_sketch_tf32", "polar_sketch.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:321", "gramfree_sketch_tf32"),
+        ("gramfree_gmul_tf32", "polar_sketch.cu",
+         "tensornetworkforml_tpu/ops/kernels/polar_split.py:334", "gramfree_gmul_tf32"),
         ("polar_sketch_gram", "polar_sketch.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:551", "polar_sketch_gram"),
         ("polar_sketch_gram", "polar_sketch.cu",
@@ -3938,6 +4343,16 @@ def main() -> None:
         if key in tensor_core or name in tensor_core:  # the float32 bound beside the 3xTF32 one
             row["bound_fp32_ms"] = bound_ms(*work[key if key in work else name])[0]
             row["bound_share"] = b_ms / ms[key][0]
+        if name in one_pass:  # gramfree_split(precision=PRECISION) at M=512
+            row["shape"] = f"I={I_big} J={J_big} q={M_LARGE}"
+            row["form"] = "one-pass TF32"
+            row["ms_3xtf32"] = ms[name][3]
+            row["bound_share"] = b_ms / ms[name][0]
+        if name in ("polar_iterate", "two_site_presplit", "two_site_step") and key == name:
+            # the flagship sweep under PRECISION on the engine that runs it
+            engine = {"polar_iterate": "xla", "two_site_presplit": "hybrid",
+                      "two_site_step": "fused"}[name]
+            row[f"launches_{PRECISION}_sweep"] = prec["sweeps"][engine]["launches"][name]
         rows.append(row)
     print(f"[summary] ms per sweep {ms['sweep']}; train_model {train_batch_s * 1e3:.1f} "
           f"ms/batch; rangefinder sweep {ms['rf_sweep']:.1f} ms, its train_model "
@@ -3958,6 +4373,11 @@ def main() -> None:
           f"{mesh['turns_ms']['mesh']:.1f} against sweep_once's {mesh['turns_ms']['single']:.1f}), "
           f"dist-polar sweep {mesh['dist_ms']:.1f} ms, --dp CLI {mesh['cli']['ms_per_batch']:.1f} "
           f"ms/batch; [reference] {ref['seconds']:.1f} s, [profiling] {prof['seconds']:.1f} s, "
+          f"[precision] {prec['seconds']:.1f} s (flagship sweeps under {PRECISION!r}: "
+          + ", ".join(f"{e} {v['ms']:.1f} ms against IEEE {v['ms_ieee']:.1f}"
+                      for e, v in prec["sweeps"].items())
+          + f"), [teacher_pm0] {teacher_pm0['seconds']:.1f} s (test accuracy brick wall "
+          f"{teacher_pm0['brick']:.4f}, two-site {teacher_pm0['twosite']:.4f}); "
           f"[examples] {examples['seconds']:.1f} s (example 02's K3 launches "
           f"{examples['k3_launches']}); {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}))

@@ -38,6 +38,13 @@
 //        first stage (polar_iterate.cu) is this same call.
 // K4b and K5 are their launches together, each counted as one kernel by its
 // wrapper.
+//
+// K4a and K4b also have a one-pass TF32 form (tnml_gramfree_sketch_tf32,
+// tnml_gramfree_gmul_tf32): the same plans, scratch and fixed-order sums,
+// the tiles issuing only the hi.hi product (tc_gemm.cuh, PASSES = 1), for
+// gramfree_split under a reduced precision. Their bound is a third of the
+// 3xTF32 form's tensor work: 21.7 us for K4a and 43.4 us for K4b at M = 512
+// at 495 TFLOP/s, against 19.5 and 13.7 us of traffic.
 
 #include <cuda_runtime.h>
 
@@ -76,6 +83,39 @@ tc::Gemm gmul_second_plan(const float* b, const float* tt, float* z, int I, int 
   return g;
 }
 
+// K4a: y0 = B Omega, n2 = |B|_F^2, in PASSES tensor-core passes
+template <int PASSES>
+int gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch, int I,
+                    int J, int q, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  tc::Gemm g = tc::sketch_plan(b, om, y0, I, J, q);
+  g.n2p = scratch;
+  g.cp = scratch + (size_t)g.S * g.nM;
+  cudaError_t err = tc::launch<true, false, PASSES>(g, st);
+  if (err != cudaSuccess) return (int)err;
+  return tc::sum_splits(g, n2, nullptr, st);
+}
+
+// K4b: z = B (B^T y1), in PASSES tensor-core passes
+template <int PASSES>
+int gramfree_gmul(const float* b, const float* y1, float* z, float* scratch, int I, int J, int q,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  float* tt = scratch;
+  float* parts = scratch + (size_t)q * J;
+  tc::Gemm g1 = gmul_first_plan(b, y1, tt, I, J, q);
+  g1.cp = parts;
+  cudaError_t err = tc::launch<false, false, PASSES>(g1, st);
+  if (err != cudaSuccess) return (int)err;
+  int e = tc::sum_splits(g1, nullptr, nullptr, st);
+  if (e != 0) return e;
+  tc::Gemm g2 = gmul_second_plan(b, tt, z, I, J, q);
+  g2.cp = parts;
+  err = tc::launch<true, true, PASSES>(g2, st);
+  if (err != cudaSuccess) return (int)err;
+  return tc::sum_splits(g2, nullptr, nullptr, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -99,16 +139,16 @@ long tnml_gmul_scratch_floats(int I, int J, int q) {
   return (long)q * J + std::max(tc::partial_floats(g1), tc::partial_floats(g2));
 }
 
-// K4a: y0 = B Omega, n2 = |B|_F^2
+// K4a: y0 = B Omega, n2 = |B|_F^2 (3xTF32)
 int tnml_gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch,
                          int I, int J, int q, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  tc::Gemm g = tc::sketch_plan(b, om, y0, I, J, q);
-  g.n2p = scratch;
-  g.cp = scratch + (size_t)g.S * g.nM;
-  cudaError_t err = tc::launch<true, false>(g, st);
-  if (err != cudaSuccess) return (int)err;
-  return tc::sum_splits(g, n2, nullptr, st);
+  return gramfree_sketch<3>(b, om, y0, n2, scratch, I, J, q, stream);
+}
+
+// K4a in one TF32 pass; the same scratch
+int tnml_gramfree_sketch_tf32(const float* b, const float* om, float* y0, float* n2,
+                              float* scratch, int I, int J, int q, void* stream) {
+  return gramfree_sketch<1>(b, om, y0, n2, scratch, I, J, q, stream);
 }
 
 // K5: y = B Omega, G = B B^T, n2 = |B|_F^2
@@ -117,23 +157,16 @@ int tnml_sketch_gram(const float* b, const float* om, float* y, float* g, float*
   return tc::sketch_gram(b, om, y, g, n2, scratch, I, J, q, (cudaStream_t)stream);
 }
 
-// K4b: z = B (B^T y1)
+// K4b: z = B (B^T y1) (3xTF32)
 int tnml_gramfree_gmul(const float* b, const float* y1, float* z, float* scratch, int I, int J,
                        int q, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* tt = scratch;
-  float* parts = scratch + (size_t)q * J;
-  tc::Gemm g1 = gmul_first_plan(b, y1, tt, I, J, q);
-  g1.cp = parts;
-  cudaError_t err = tc::launch<false, false>(g1, st);
-  if (err != cudaSuccess) return (int)err;
-  int e = tc::sum_splits(g1, nullptr, nullptr, st);
-  if (e != 0) return e;
-  tc::Gemm g2 = gmul_second_plan(b, tt, z, I, J, q);
-  g2.cp = parts;
-  err = tc::launch<true, true>(g2, st);
-  if (err != cudaSuccess) return (int)err;
-  return tc::sum_splits(g2, nullptr, nullptr, st);
+  return gramfree_gmul<3>(b, y1, z, scratch, I, J, q, stream);
+}
+
+// K4b in one TF32 pass; the same scratch
+int tnml_gramfree_gmul_tf32(const float* b, const float* y1, float* z, float* scratch, int I,
+                            int J, int q, void* stream) {
+  return gramfree_gmul<1>(b, y1, z, scratch, I, J, q, stream);
 }
 
 const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

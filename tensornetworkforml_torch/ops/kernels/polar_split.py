@@ -24,7 +24,9 @@ kernel ``polar_iterate_pallas``); on a CPU tensor it runs the plain version
 ``G y = B (B^T y)``. Two streaming reductions over B's columns,
 ``gramfree_sketch`` (K4a: ``y0 = B Omega`` and ``n2``) and ``gramfree_gmul``
 (K4b: ``z = B (B^T y1)``), with the polar orthonormalisations (or CholQR2)
-as plain products in between. ``polar_split_two_stage`` is the split as
+as plain products in between. Under a reduced ``precision`` the split runs
+K4a and K4b in one TF32 pass instead (``gramfree_sketch_tf32`` and
+``gramfree_gmul_tf32``, the same library). ``polar_split_two_stage`` is the split as
 ``polar_sketch_gram`` (K5: ``y``, ``G`` and ``n2`` in one pass over B)
 followed by K1. The three reductions are ``csrc/polar_sketch.cu`` on a card
 (all three on the tensor cores in 3xTF32, ``csrc/tc_gemm.cuh``; K5's G from
@@ -51,6 +53,7 @@ import torch
 
 from tensornetworkforml_torch.ops import svd as _svd
 from tensornetworkforml_torch.ops.kernels import _build
+from tensornetworkforml_torch.utils.precision import check_name, full_float32, matmul_precision
 
 # Default greedy schedules: the loop phase only conditions the iterate for
 # the power step (E ~ 0.25 from l0 = 1e-3); the final phase runs on the
@@ -62,11 +65,6 @@ _PE_FINAL = (1e-7, 1e-7)
 # directions of the squared spectrum start near 4e-8
 _PE_FINAL_GRAMFREE = (1e-8, 1e-7)
 _MAX_PASSES = 64  # coefficient slots of the kernel's parameter block
-# the split methods' products all run in float32 here, apart from K4a, K4b
-# and K5, which run in 3xTF32 on the tensor cores (within about ten times
-# float32's error); a reduced precision for the rest is an open numerics
-# decision
-_FULL_F32 = ("default", "highest")
 
 
 def _minimax_quintic(lo: float, hi: float):
@@ -267,19 +265,23 @@ def polar_iterate(
 polar_iterate.launches = 0
 
 
-def _canonical_factors(q: torch.Tensor, rank: int, b32: torch.Tensor, out_dtype):
+def _canonical_factors(q: torch.Tensor, rank: int, b32: torch.Tensor, out_dtype,
+                       precision: str = "float32"):
     """``(Q, R = Q^T B)`` in ``out_dtype``, with ``Q (I, q_cols)`` padded by
-    zero columns to ``rank`` when the split had fewer rows than ``rank``."""
+    zero columns to ``rank`` when the split had fewer rows than ``rank``; R
+    in IEEE float32 unless ``precision`` names a reduced mode."""
     if q.shape[1] < rank:
         q = torch.cat([q, q.new_zeros((q.shape[0], rank - q.shape[1]))], dim=1)
-    r = q.T @ b32
+    with matmul_precision(precision):
+        r = q.T @ b32
     return q.to(out_dtype), r.to(out_dtype)
 
 
+@full_float32
 def hybrid_polar_split(bmat: torch.Tensor, rank: int):
     """Canonical split ``bmat (I, J) -> (Q (I, rank) isometric, R = Q^T B)``.
 
-    The sketch, the Gram and ``R`` are plain float32 matrix products; the
+    The sketch, the Gram and ``R`` are plain IEEE float32 matrix products; the
     subspace iteration is ``polar_iterate`` (K1 on a card), with ``n2`` read
     off ``tr G``. ``dead_tol`` follows the INPUT dtype (1e-12 for float64),
     as in the JAX package, though the iteration itself runs in float32.
@@ -320,10 +322,13 @@ def _sketch_lib() -> ctypes.CDLL:
     if lib.tnml_gramfree_sketch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # pointers (inputs, outputs, scratch), then I, J, q, then the stream
-        lib.tnml_gramfree_sketch.argtypes = [p, p, p, p, p, i, i, i, p]
+        for fn in (lib.tnml_gramfree_sketch, lib.tnml_gramfree_sketch_tf32):
+            fn.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.tnml_sketch_gram.argtypes = [p, p, p, p, p, p, i, i, i, p]
-        lib.tnml_gramfree_gmul.argtypes = [p, p, p, p, i, i, i, p]
-        for fn in (lib.tnml_gramfree_sketch, lib.tnml_sketch_gram, lib.tnml_gramfree_gmul):
+        for fn in (lib.tnml_gramfree_gmul, lib.tnml_gramfree_gmul_tf32):
+            fn.argtypes = [p, p, p, p, i, i, i, p]
+        for fn in (lib.tnml_gramfree_sketch, lib.tnml_gramfree_sketch_tf32, lib.tnml_sketch_gram,
+                   lib.tnml_gramfree_gmul, lib.tnml_gramfree_gmul_tf32):
             fn.restype = ctypes.c_int
         for fn in (lib.tnml_sketch_scratch_floats, lib.tnml_gramfree_sketch_scratch_floats,
                    lib.tnml_gmul_scratch_floats):
@@ -383,6 +388,28 @@ def _scratch_floats(fn: str, I: int, J: int, q: int) -> int:
     return getattr(_sketch_lib(), fn)(I, J, q)
 
 
+def _launch_sketch(entry: str, bmat: torch.Tensor, om: torch.Tensor):
+    """K4a's launch through the C entry ``entry`` (either form): ``(y0, n2)``."""
+    (I, J), q = bmat.shape, om.shape[1]
+    y0 = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
+    n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
+    scratch = _scratch(_scratch_floats("tnml_gramfree_sketch_scratch_floats", I, J, q), bmat)
+    _run(entry, bmat, lambda lib, stream: getattr(lib, entry)(
+        bmat.data_ptr(), om.data_ptr(), y0.data_ptr(), n2.data_ptr(), scratch.data_ptr(),
+        I, J, q, stream))
+    return y0, n2
+
+
+def _launch_gmul(entry: str, bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
+    """K4b's launch through the C entry ``entry`` (either form): ``z``."""
+    (I, J), q = bmat.shape, y1.shape[1]
+    z = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
+    scratch = _scratch(_scratch_floats("tnml_gmul_scratch_floats", I, J, q), bmat)
+    _run(entry, bmat, lambda lib, stream: getattr(lib, entry)(
+        bmat.data_ptr(), y1.data_ptr(), z.data_ptr(), scratch.data_ptr(), I, J, q, stream))
+    return z
+
+
 def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
     """K4a: ``y0 = B om (I, q)`` and ``n2 = |B|_F^2 (1, 1)`` in one pass over
     ``bmat (I, J)``. On the card every product runs on the tensor cores in
@@ -394,15 +421,27 @@ def gramfree_sketch(bmat: torch.Tensor, om: torch.Tensor):
     """
     if not _on_card("gramfree_sketch", bmat, om, 1):
         return gramfree_sketch_reference(bmat, om)
-    (I, J), q = bmat.shape, om.shape[1]
-    y0 = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
-    n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
-    scratch = _scratch(_scratch_floats("tnml_gramfree_sketch_scratch_floats", I, J, q), bmat)
-    _run("gramfree_sketch", bmat, lambda lib, stream: lib.tnml_gramfree_sketch(
-        bmat.data_ptr(), om.data_ptr(), y0.data_ptr(), n2.data_ptr(), scratch.data_ptr(),
-        I, J, q, stream))
+    out = _launch_sketch("tnml_gramfree_sketch", bmat, om)
     gramfree_sketch.launches += 1
-    return y0, n2
+    return out
+
+
+def gramfree_sketch_tf32(bmat: torch.Tensor, om: torch.Tensor):
+    """K4a in one TF32 pass: ``gramfree_sketch``'s outputs with each
+    product's operands rounded to TF32 (``cvt.rna``) and summed in float32
+    on the tensor cores, a third of the 3xTF32 form's tensor work; ``n2``
+    still sums the float32 squares. Its plain version is the same float32
+    product, ``gramfree_sketch_reference``.
+
+    CPU tensors run ``gramfree_sketch_reference``. CUDA tensors must be
+    float32 and contiguous and launch the kernel; each launch adds one to
+    ``gramfree_sketch_tf32.launches``.
+    """
+    if not _on_card("gramfree_sketch_tf32", bmat, om, 1):
+        return gramfree_sketch_reference(bmat, om)
+    out = _launch_sketch("tnml_gramfree_sketch_tf32", bmat, om)
+    gramfree_sketch_tf32.launches += 1
+    return out
 
 
 def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
@@ -416,12 +455,25 @@ def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
     """
     if not _on_card("gramfree_gmul", bmat, y1, 0):
         return gramfree_gmul_reference(bmat, y1)
-    (I, J), q = bmat.shape, y1.shape[1]
-    z = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
-    scratch = _scratch(_scratch_floats("tnml_gmul_scratch_floats", I, J, q), bmat)
-    _run("gramfree_gmul", bmat, lambda lib, stream: lib.tnml_gramfree_gmul(
-        bmat.data_ptr(), y1.data_ptr(), z.data_ptr(), scratch.data_ptr(), I, J, q, stream))
+    z = _launch_gmul("tnml_gramfree_gmul", bmat, y1)
     gramfree_gmul.launches += 1
+    return z
+
+
+def gramfree_gmul_tf32(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
+    """K4b in one TF32 pass: both halves (``t^T = y1^T B``, ``z = B t``)
+    with their operands rounded to TF32 and summed in float32 on the tensor
+    cores; ``t`` stays float32 between them. Its plain version is
+    ``gramfree_gmul_reference``.
+
+    CPU tensors run ``gramfree_gmul_reference``. CUDA tensors must be float32
+    and contiguous and launch the kernel; each call adds one to
+    ``gramfree_gmul_tf32.launches``.
+    """
+    if not _on_card("gramfree_gmul_tf32", bmat, y1, 0):
+        return gramfree_gmul_reference(bmat, y1)
+    z = _launch_gmul("tnml_gramfree_gmul_tf32", bmat, y1)
+    gramfree_gmul_tf32.launches += 1
     return z
 
 
@@ -450,24 +502,13 @@ def polar_sketch_gram(bmat: torch.Tensor, om: torch.Tensor):
 
 
 gramfree_sketch.launches = 0
+gramfree_sketch_tf32.launches = 0
 gramfree_gmul.launches = 0
+gramfree_gmul_tf32.launches = 0
 polar_sketch_gram.launches = 0
 
 
 # ---- the large-bond splits -----------------------------------------------------
-
-def _full_f32(name: str, value: str) -> None:
-    if value in _FULL_F32:
-        return
-    if value == "high":
-        raise NotImplementedError(
-            f"{name}='high' (3-pass bf16 products on the TPU) is not ported: whether "
-            "TF32 or 3xTF32 may stand in for it on the card is an open numerics "
-            "decision (ROADMAP queue 1 item 9); 'default' and 'highest' both mean "
-            "full float32 here"
-        )
-    raise ValueError(f"unknown {name} {value!r}; expected one of {_FULL_F32} or 'high'")
-
 
 def _polish(q: torch.Tensor) -> torch.Tensor:
     """One CholQR pass at a 1e-6 floor ridge: ``Q^T Q = I + O(eps)`` here, so
@@ -495,13 +536,29 @@ def gramfree_split(
     ``orth="ns"`` orthonormalises by polar Newton-Schulz: ``colnorm`` then the
     loop schedule, and ``colnorm`` then the ``(1e-8, 1e-7)`` final schedule.
     ``orth="cholqr"`` uses CholQR2 with the q-scaled ridge and a 1e-6 polish
-    for both. The orthonormalisations and ``R`` are plain float32 products.
-    ``precision`` and ``ns_prec`` take "default" or "highest", which both mean
-    full float32 here; "high" raises. ``dead_tol`` is 1e-6 and the split runs
-    in float32 whatever the input dtype, as in the JAX package.
+    for both. ``dead_tol`` is 1e-6 and the split runs in float32 whatever the
+    input dtype, as in the JAX package.
+
+    ``precision`` and ``ns_prec`` take the names of ``utils/precision.py``
+    (any other raises ``ValueError``). On the card:
+
+    * ``precision`` "default", "float32" or "highest": K4a and K4b in 3xTF32
+      (``gramfree_sketch``, ``gramfree_gmul``) and ``R`` in IEEE float32;
+      "tensorfloat32", "high" or "bfloat16": K4a and K4b in one TF32 pass
+      (``gramfree_sketch_tf32``, ``gramfree_gmul_tf32``) and ``R`` in TF32
+      (the JAX package's single-pass DEFAULT for every name but "highest");
+    * ``ns_prec``: the orthonormalisations' products in IEEE float32 for
+      every name (either engine). On an H100 (``scripts/torch_iterate_m512.py``,
+      I=1024, q=512) the two Newton-Schulz orthonormalisations in TF32 left
+      the live columns 1.27e-3 from an isometry and lost 3.0e-4 of the
+      captured energy, against 5.8e-7 and 2.4e-7 in IEEE, outside the
+      script's bar (PERF.md section 6).
+
+    On the CPU every name gives the float32 result, as the JAX package's
+    knob does there.
     """
-    _full_f32("precision", precision)
-    _full_f32("ns_prec", ns_prec)
+    one_pass = check_name(precision)
+    check_name(ns_prec)
     I, J = bmat.shape
     q_cols = min(rank, I)
     dead_tol = 1e-6
@@ -523,16 +580,23 @@ def gramfree_split(
         orth_final = orth_first
     else:
         raise ValueError(f"unknown orth {orth!r}")
+    sketch, gmul = ((gramfree_sketch_tf32, gramfree_gmul_tf32) if one_pass
+                    else (gramfree_sketch, gramfree_gmul))
     out_dtype = bmat.dtype
     b32 = bmat.to(torch.float32).contiguous()
     om = _svd.rangefinder_omega(J, q_cols, torch.float32, bmat.device).contiguous()
-    y0, n2 = gramfree_sketch(b32, om)
+    y0, n2 = sketch(b32, om)
     n2 = torch.clamp(n2.reshape(()), min=1e-30)
-    y1 = orth_first(y0 / torch.sqrt(n2))
-    q = orth_final(gramfree_gmul(b32, y1.contiguous()) / n2)
-    return _canonical_factors(q, rank, b32, out_dtype)
+    with matmul_precision("float32"):
+        y1 = orth_first(y0 / torch.sqrt(n2))
+    z = gmul(b32, y1.contiguous())
+    with matmul_precision("float32"):
+        q = orth_final(z / n2)
+    return _canonical_factors(q, rank, b32, out_dtype,
+                              "tensorfloat32" if one_pass else "float32")
 
 
+@full_float32
 def polar_split_two_stage(
     bmat: torch.Tensor,
     rank: int,
@@ -583,6 +647,7 @@ def _split_inputs(bmat: torch.Tensor, rank: int):
     return b32, om, q_cols, dead_tol
 
 
+@full_float32
 def polar_split_reference(
     bmat: torch.Tensor,
     rank: int,

@@ -36,6 +36,7 @@ import torch
 
 from tensornetworkforml_torch.ops import svd as _svd
 from tensornetworkforml_torch.ops.kernels import _build
+from tensornetworkforml_torch.utils.precision import full_float32
 
 _EPS = 1e-30
 
@@ -72,6 +73,7 @@ def hqr_orth(y: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
     return qacc
 
 
+@full_float32
 def rangefinder_split_plain(
     bmat: torch.Tensor, rank: int, oversample: int = 8, n_iter: int = 6, mid_orth: int = 1,
 ):

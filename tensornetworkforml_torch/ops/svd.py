@@ -24,6 +24,12 @@ The counterpart of the JAX package's ``ops/svd.py``; every method is ported:
   * ``"rangefinder_pallas"`` -- ``rangefinder_split`` at every I (on a CUDA
     tensor above 2048 rows it raises).
 
+Every split runs its products in IEEE float32 on the card, inside a sweep
+under a reduced ``matmul_precision`` too (``utils/precision.py::
+full_float32``), as the JAX package's splits re-enter
+``default_matmul_precision("float32")``: a Gram, a sketch or ``R`` rounded
+to TF32 would move the kept rank.
+
 The polar and rangefinder choices go by shape alone, on every device, as the
 JAX package's go on its chip. Its CPU fallback differs: there ``polar`` runs
 the hybrid split at every I, and both rangefinder methods run
@@ -35,6 +41,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from tensornetworkforml_torch.utils.precision import full_float32
 
 _OMEGA_SEED = 0x52464E44  # the seed of the JAX package's fixed sketch matrix
 # rows above which the polar split goes gram-free, and from which the
@@ -60,6 +68,7 @@ def rangefinder_omega(J: int, q: int, dtype=torch.float32, device=None) -> torch
     return om.to(dtype=dtype, device=device)
 
 
+@full_float32
 def truncated_svd_split(
     bmat: torch.Tensor,
     rank: int,
@@ -150,6 +159,7 @@ def _colnorm(y: torch.Tensor) -> torch.Tensor:
     return y / torch.clamp(torch.linalg.vector_norm(y, dim=0, keepdim=True), min=1e-30)
 
 
+@full_float32
 def _rangefinder_split(
     bmat: torch.Tensor, rank: int, keep=None, split_mode: str = "canonical",
     n_power: int = 0, oversample: int = 16, n_polish: int = 1,
@@ -182,6 +192,7 @@ def _rangefinder_split(
     return q, q.T @ bmat
 
 
+@full_float32
 def _chol_svd_split(
     bmat: torch.Tensor, rank: int, keep=None, split_mode: str = "shared",
     adaptive_tol: float = 0.0,
@@ -219,6 +230,7 @@ def _chol_svd_split(
     return U * sqrt_s[None, :], inv_sqrt[:, None] * (U.T @ bmat)
 
 
+@full_float32
 def _gram_split(bmat: torch.Tensor, rank: int, keep=None, split_mode: str = "shared"):
     """Split via ``eigh`` of the smaller Gram matrix. A tall matrix recurses
     on its transpose (shared gauge only: the canonical gauge is left-sided).
@@ -258,6 +270,7 @@ def _cholqr_eps(dtype, q_cols: int) -> float:
     return max(1e-5, 8.0 * q_cols * 1.19e-7)
 
 
+@full_float32
 def batched_cholqr_split(bmats: torch.Tensor, rank: int, n_power: int = 3, eps: float = None):
     """Batched canonical splits with no qr/eigh/svd: a Gaussian sketch at
     ``rank`` columns, CholQR-orthonormalised power iterations on the Gram,

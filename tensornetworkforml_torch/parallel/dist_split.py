@@ -26,6 +26,10 @@ Two forms:
 
 Communication per split: ``I q + I^2 + 1`` floats whatever J is, so the split
 scales to any bond dimension at O(I J / n) memory a rank for its products.
+
+Both run their products in IEEE float32 on the card under any
+``matmul_precision`` (``utils/precision.py::full_float32``), as the JAX
+package's re-enter ``default_matmul_precision("float32")``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch.distributed as dist
 
 from tensornetworkforml_torch.ops import svd as _svd
 from tensornetworkforml_torch.parallel.mesh import MODEL_AXIS, Shard, axis_size, sum_flat
+from tensornetworkforml_torch.utils.precision import full_float32
 
 
 def _column_shards(bmat: torch.Tensor, rank: int, mesh, axis: str):
@@ -50,6 +55,7 @@ def _column_shards(bmat: torch.Tensor, rank: int, mesh, axis: str):
             Shard(mesh, axis, 0).local(om).contiguous())
 
 
+@full_float32
 def distributed_cholqr_split(bmat: torch.Tensor, rank: int, mesh, axis: str = MODEL_AXIS,
                              n_power: int = 3):
     """Canonical split of the replicated ``bmat (I, J)``, its columns split
@@ -78,6 +84,7 @@ def shard_bmat_columns(bmat: torch.Tensor, mesh, axis: str = MODEL_AXIS) -> torc
     return Shard(mesh, axis, 1).local(bmat).contiguous()
 
 
+@full_float32
 def distributed_polar_split(bmat: torch.Tensor, rank: int, mesh, axis: str = MODEL_AXIS):
     """The polar split of the replicated ``bmat (I, J)`` with its columns over
     ``axis``: K5 on the rank's columns, one all-reduce of ``(y, G, n2)``, K1

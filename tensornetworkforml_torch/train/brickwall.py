@@ -60,7 +60,6 @@ from tensornetworkforml_torch.train.onesite import (
     batch_metrics,
     boundary_accuracy,
     boundary_batch,
-    check_precision,
     w_step,
 )
 from tensornetworkforml_torch.train.trainer import _loader_batches
@@ -68,6 +67,7 @@ from tensornetworkforml_torch.utils.checkpoint import (
     load_boundary_training_state,
     save_boundary_training_state,
 )
+from tensornetworkforml_torch.utils.precision import check_name, matmul_precision
 
 
 class BrickConfig(NamedTuple):
@@ -81,7 +81,8 @@ class BrickConfig(NamedTuple):
     renorm: bool = True
     # max fractional growth of sum|B| per pair update (0 = unlimited)
     growth_cap: float = 0.0
-    # every product runs in full float32; reduced precision raises (item 9)
+    # the scope of every product of a sweep (utils/precision.py, as
+    # OneSiteConfig's); the splits re-enter IEEE float32 (ops/svd.py)
     matmul_precision: str = "default"
     # "cholqr": batched matmul/Cholesky-only splits; "rangefinder":
     # ops/svd.py::_rangefinder_split (qr + eigh) on each pair
@@ -230,10 +231,10 @@ def brick_sweep(
     taken on the pre-update scores, ``["gamma"]`` is the even layer's step."""
     if cfg is None:
         cfg = BrickConfig(act_fn=model.act_fn, loss_fn=model.loss_fn)
-    check_precision(cfg.matmul_precision)
-    sites, w, metrics = _brick_sweep_body(
-        model.sites, model.w, phi.to(model.dtype), y_onehot.to(model.dtype),
-        float(lr), float(weight_dec), model.T, cfg)
+    with matmul_precision(cfg.matmul_precision):
+        sites, w, metrics = _brick_sweep_body(
+            model.sites, model.w, phi.to(model.dtype), y_onehot.to(model.dtype),
+            float(lr), float(weight_dec), model.T, cfg)
     return model.replace(sites=sites, w=w), metrics
 
 
@@ -255,7 +256,7 @@ def brick_epoch(
     and every rank returns the same model and metrics, the whole batches'."""
     if cfg is None:
         cfg = BrickConfig(act_fn=model.act_fn, loss_fn=model.loss_fn)
-    check_precision(cfg.matmul_precision)
+    check_name(cfg.matmul_precision)
     dp = None
     if mesh is not None:
         from tensornetworkforml_torch.parallel.mesh import DataShards, replicated
@@ -272,10 +273,11 @@ def brick_epoch(
         phi_epoch, y1h = dp.rows(phi_epoch, dim=1), dp.rows(y1h, dim=2)
     sites, w = model.sites, model.w
     steps = []
-    for phi, y in zip(phi_epoch, y1h):
-        sites, w, metrics = _brick_sweep_body(sites, w, phi, y, float(lr), float(weight_dec),
-                                              model.T, cfg, dp)
-        steps.append(metrics)
+    with matmul_precision(cfg.matmul_precision):
+        for phi, y in zip(phi_epoch, y1h):
+            sites, w, metrics = _brick_sweep_body(sites, w, phi, y, float(lr),
+                                                  float(weight_dec), model.T, cfg, dp)
+            steps.append(metrics)
     metrics = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
     return model.replace(sites=sites, w=w), metrics
 
@@ -288,13 +290,14 @@ def make_sharded_brick_step(mesh, T: float, cfg: BrickConfig):
     batch's, the same on every rank."""
     from tensornetworkforml_torch.parallel.mesh import DataShards
 
-    check_precision(cfg.matmul_precision)
+    check_name(cfg.matmul_precision)
     dp = DataShards(mesh)
 
     def step(sites, w, phi, y_onehot, lr, weight_dec):
-        return _brick_sweep_body(sites, w, dp.rows(phi.to(sites.dtype)),
-                                 dp.rows(y_onehot.to(sites.dtype), dim=1), float(lr),
-                                 float(weight_dec), T, cfg, dp)
+        with matmul_precision(cfg.matmul_precision):
+            return _brick_sweep_body(sites, w, dp.rows(phi.to(sites.dtype)),
+                                     dp.rows(y_onehot.to(sites.dtype), dim=1), float(lr),
+                                     float(weight_dec), T, cfg, dp)
 
     return step
 

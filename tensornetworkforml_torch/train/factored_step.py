@@ -18,10 +18,16 @@ without ``(I, L*J')``. Only the clip statistics ``sum|B_t|`` and
 ``sum|deltaB|`` (and ``sum|B_new|`` under ``growth_cap``) look at the full
 two-site tensor.
 
-Everything here is plain torch products in full float32, or float64 for a
-float64 model. The JAX package runs its iteration at ``Precision.HIGH``
-(3-pass bf16) in float32; whether TF32 or 3xTF32 may stand in for that on
-the card is an open decision, and no kernel runs here.
+Everything here is plain torch products, and no kernel runs here. The
+products outside the iteration follow the sweep's ``matmul_precision``, as in
+the JAX package. The iteration (``_iterate``) keeps its own precision in
+every mode, as the JAX package's keeps ``Precision.HIGH`` (3-pass bf16) in
+float32: on the card its loop passes (the conditioner's Newton-Schulz
+products and the power multiply) and its final passes each run in the mode
+``_ITERATE_MODES`` names, chosen by ``scripts/torch_iterate_m512.py`` on an
+H100 (PERF.md section 6): IEEE float32, since TF32 there loses more of the
+captured energy than the script's bar allows. A float64 model iterates in
+float64, where TF32 never applies.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from tensornetworkforml_torch.ops.kernels.polar_split import (
     _pe_schedule,
     _polar_ns_greedy,
 )
+from tensornetworkforml_torch.utils.precision import matmul_precision
 
 # Shortened greedy Polar Express schedules for the large-bond path: loop
 # (3e-3, 0.3) = 4 passes and final (1e-6, 1e-7) = 12 passes, at q >= 512
@@ -44,23 +51,32 @@ from tensornetworkforml_torch.ops.kernels.polar_split import (
 # under-converges, so the standard pair stays in force below q = 512.
 _PE_LOOP_F = (3e-3, 0.3)
 _PE_FINAL_F = (1e-6, 1e-7)
+# the iteration's (loop passes, final passes) matmul precision on the card:
+# IEEE for both. On an H100 (scripts/torch_iterate_m512.py, the gapped I=1024,
+# J=10240, q=512 matrix) TF32 in every pass lost 2.7e-4 of the captured energy
+# and TF32 in the loop passes only 2.9e-5, against 3.3e-6 in IEEE, outside the
+# script's bar (PERF.md section 6)
+_ITERATE_MODES = ("float32", "float32")
 
 
-def _iterate(y0, g, n2, dead_tol, n_power: int = 1):
+def _iterate(y0, g, n2, dead_tol, n_power: int = 1, modes=_ITERATE_MODES):
     """The subspace iteration of ``polar_iterate`` (colnorm -> loop NS -> G
     multiply, then colnorm -> final NS) as plain products, with the
-    ``_PE_*_F`` schedules at q >= 512."""
+    ``_PE_*_F`` schedules at q >= 512; the loop phase (its NS passes and
+    the multiply by G) in ``modes[0]``'s precision, the final phase in
+    ``modes[1]``'s (``utils/precision.py``)."""
     big = y0.shape[1] >= 512
     loop_s = _pe_schedule(*(_PE_LOOP_F if big else _PE_LOOP))
     final_s = _pe_schedule(*(_PE_FINAL_F if big else _PE_FINAL))
     g = g / torch.clamp(n2, min=1e-30)
     y = y0
-    for _ in range(n_power):
-        y = _colnorm(y, dead_tol)
-        y = _polar_ns_greedy(y, loop_s)
-        y = g @ y
-    y = _colnorm(y, dead_tol)
-    return _polar_ns_greedy(y, final_s)
+    with matmul_precision(modes[0]):
+        for _ in range(n_power):
+            y = _colnorm(y, dead_tol)
+            y = _polar_ns_greedy(y, loop_s)
+            y = g @ y
+    with matmul_precision(modes[1]):
+        return _polar_ns_greedy(_colnorm(y, dead_tol), final_s)
 
 
 def factored_supported(cfg, M: int, D: int) -> bool:

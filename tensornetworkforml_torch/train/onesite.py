@@ -44,8 +44,7 @@ from tensornetworkforml_torch.utils.checkpoint import (
     load_boundary_training_state,
     save_boundary_training_state,
 )
-
-_FULL_F32 = ("default", "float32", "highest")
+from tensornetworkforml_torch.utils.precision import matmul_precision
 
 
 class OneSiteConfig(NamedTuple):
@@ -59,20 +58,10 @@ class OneSiteConfig(NamedTuple):
     # Needed for chains past N ~ 500 in float32; it changes the effective
     # step size, so it stays off for short chains.
     renorm: bool = False
-    # every product runs in full float32 ("default", "float32", "highest");
-    # reduced precision raises (ROADMAP queue 1 item 9)
+    # the scope of every product of a sweep (utils/precision.py): on the card
+    # "default", "float32" and "highest" are IEEE float32, "tensorfloat32",
+    # "high" and "bfloat16" TF32; the CPU gives the float32 result for each
     matmul_precision: str = "default"
-
-
-def check_precision(matmul_precision: str) -> None:
-    """Raise for a reduced-precision ``matmul_precision``: the port runs every
-    product of these trainers in full float32."""
-    if matmul_precision not in _FULL_F32:
-        raise NotImplementedError(
-            f"matmul_precision={matmul_precision!r}: the port runs every product in "
-            f"full float32 ({', '.join(_FULL_F32)}); reduced precision (TF32 or "
-            "3xTF32) is an open decision (ROADMAP queue 1 item 9)"
-        )
 
 
 def clip_to(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -221,11 +210,11 @@ def onesite_sweep(
     ``accuracy`` and ``MAE`` series of length N."""
     if cfg is None:
         cfg = OneSiteConfig(act_fn=model.act_fn, loss_fn=model.loss_fn)
-    check_precision(cfg.matmul_precision)
     body = _sweep_left if left_dir else _sweep_right
-    sites, w, metrics = body(
-        model.sites, model.w, phi.to(model.dtype), y_onehot.to(model.dtype),
-        float(lr), float(weight_dec), model.T, cfg)
+    with matmul_precision(cfg.matmul_precision):
+        sites, w, metrics = body(
+            model.sites, model.w, phi.to(model.dtype), y_onehot.to(model.dtype),
+            float(lr), float(weight_dec), model.T, cfg)
     return model.replace(sites=sites, w=w), metrics
 
 

@@ -45,11 +45,17 @@ the mesh's ``data`` axis, and ``renorm_envs``' mean env norm into a second,
 scalar one after the split. Each step then runs inside a profiler range
 named ``utils.collectives.STEP_RANGE``.
 
-``matmul_precision``: every product of the port runs in float32 (TF32 stays
-off), apart from K4a and K4b, which run in 3xTF32 on the tensor cores, within
-about ten times float32's error; that is what ``"default"``, ``"float32"``
-and ``"highest"`` mean here. Reduced-precision modes are a numerics decision
-not taken yet (ROADMAP queue 1 item 9).
+``matmul_precision`` scopes the whole sweep, every engine, as the JAX
+package's ``default_matmul_precision`` does (``utils/precision.py``): on the
+card ``"default"``, ``"float32"`` and ``"highest"`` run cuBLAS's products in
+IEEE float32, and ``"tensorfloat32"``, ``"high"`` and ``"bfloat16"`` in TF32;
+on the CPU every name gives the float32 result. The splits re-enter IEEE
+float32 (``ops/svd.py``), and the hand-written kernels (K1, K2, K4a and K4b
+in 3xTF32, K7) keep their own precision in every mode, as the JAX package's
+Pallas bodies keep theirs; what TF32 reaches is the environments, the
+merge, the gradient, the output and, in the hybrid engine, ``R`` and the
+carried environment. The factored update's iteration keeps its own
+precision (``train/factored_step.py``).
 """
 
 from __future__ import annotations
@@ -80,12 +86,12 @@ from tensornetworkforml_torch.ops.kernels.step_kernel import (
 )
 from tensornetworkforml_torch.ops.svd import truncated_svd_split
 from tensornetworkforml_torch.utils.collectives import STEP_RANGE
+from tensornetworkforml_torch.utils.precision import matmul_precision
 from tensornetworkforml_torch.train.factored_step import (
     factored_supported,
     two_site_update_factored,
 )
 
-_FULL_F32 = ("default", "float32", "highest")
 _NO_RANGE = contextlib.nullcontext()
 
 
@@ -448,12 +454,6 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
     N, M, D, _ = sites.shape
     B = phi.shape[0]
     dtype, dev = sites.dtype, sites.device
-    if cfg.matmul_precision not in _FULL_F32:
-        raise NotImplementedError(
-            f"matmul_precision={cfg.matmul_precision!r}: the port runs every "
-            f"product in full float32 ({', '.join(_FULL_F32)}); reduced "
-            "precision (TF32 or 3xTF32) is an open decision (ROADMAP queue 1 item 9)"
-        )
     if cfg.engine not in ("xla", "hybrid", "fused"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     e0 = boundary_vector(M, dtype=dtype, device=dev)
@@ -493,7 +493,17 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
 
 
 def _sweep(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg, left_dir, dp=None):
-    """A right sweep, or a left one as the right sweep of the mirrored chain."""
+    """A right sweep, or a left one as the right sweep of the mirrored chain,
+    inside the scope of ``cfg.matmul_precision`` (one entry a sweep: every
+    caller, ``sweep_once``, ``fused_epoch`` and ``parallel/dp.py``, sweeps
+    through here)."""
+    with matmul_precision(cfg.matmul_precision):
+        return _sweep_in_scope(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg,
+                               left_dir, dp)
+
+
+def _sweep_in_scope(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg, left_dir,
+                    dp):
     if left_dir:
         new_s, new_l, f0, f_fin, m = _sweep_right_arrays(
             _mirror_sites(sites).contiguous(),

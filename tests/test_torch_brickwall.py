@@ -261,8 +261,12 @@ def test_unknown_split_and_reduced_precision_raise():
     args = (t, psi_embed(torch.as_tensor(x)), torch.as_tensor(_y1h(y)), 0.05, 1e-4)
     with pytest.raises(ValueError, match="split_method"):
         tbw.brick_sweep(*args, tbw.BrickConfig(split_method="svd"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbw.brick_sweep(*args, tbw.BrickConfig(matmul_precision="bfloat16"))
+    # reduced precision is ported: the float32 bits on the CPU; an unknown name raises
+    got, _ = tbw.brick_sweep(*args, tbw.BrickConfig(matmul_precision="bfloat16"))
+    want, _ = tbw.brick_sweep(*args, tbw.BrickConfig())
+    assert torch.equal(got.sites, want.sites) and torch.equal(got.w, want.w)
+    with pytest.raises(ValueError, match="unknown matmul precision"):
+        tbw.brick_sweep(*args, tbw.BrickConfig(matmul_precision="bf16"))
 
 
 def test_brick_sweep_reaches_new_slots_after_growth():

@@ -24,7 +24,15 @@ Tolerances:
   output's largest entry (float32 sums of up to 10^4 terms in another order;
   K4a and K4b run in 3xTF32 on the tensor cores, about ten times float32's
   error and measured up to 2.2e-5; TF32 alone reads above the limit, in an
-  emulation on the CPU and in cuBLAS on the card).
+  emulation on the CPU and in cuBLAS on the card);
+* K4a and K4b's one-pass TF32 form on the card: against the plain product of
+  the TF32-rounded operands (summed in float64, ``t`` rounded to float32 and
+  TF32 between K4b's halves, as in the kernel), 5e-5 of the output's max
+  (only the order of the float32 sums differs, and K4b's ``t`` can round the
+  other way where its float32 sum sits on a TF32 tie: measured up to 1.4e-5
+  at M=512 on an H100); against float64, 1e-3 (each product rounds its
+  operands to TF32: measured up to 4.7e-4, as the emulation in
+  ``tests/test_torch_precision.py`` and cuBLAS with TF32 read).
 """
 
 import os
@@ -42,6 +50,7 @@ RED_TOL = 1e-5
 NS_TOL, CHOLQR_TOL = 1e-5, 1e-4
 REC_TOL = 1e-4
 CARD_TOL = 1e-4
+ONE_PASS_PLAIN_TOL, ONE_PASS_TOL = 5e-5, 1e-3
 
 
 @pytest.fixture
@@ -210,11 +219,14 @@ def test_gramfree_split_keeps_the_input_dtype_and_computes_in_float32():
 
 
 def test_gramfree_split_rejects_reduced_precision_and_unknown_options():
+    """Reduced ``precision`` and ``ns_prec`` are ported: on the CPU each gives
+    the float32 split bit for bit (on the card K4a and K4b then run in one
+    TF32 pass); a name outside the table and an unknown orth raise."""
     b = torch.as_tensor(_gapped(16, 64, 4, seed=1))
-    with pytest.raises(NotImplementedError, match="TF32"):
-        tps.gramfree_split(b, 4, ns_prec="high")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tps.gramfree_split(b, 4, precision="high")
+    want = tps.gramfree_split(b, 4)
+    for kw in (dict(ns_prec="high"), dict(precision="high"),
+               dict(precision="tensorfloat32", ns_prec="bfloat16", orth="ns")):
+        assert all(torch.equal(u, v) for u, v in zip(tps.gramfree_split(b, 4, **kw), want)), kw
     with pytest.raises(ValueError, match="orth"):
         tps.gramfree_split(b, 4, orth="qr")
     with pytest.raises(ValueError, match="precision"):
@@ -476,3 +488,69 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         tps.polar_sketch_gram(b, om.cpu())  # mixed devices
     with pytest.raises(ValueError):
         tps.gramfree_sketch(b, om[:, :0].contiguous())  # empty q
+
+
+def _tf32_card(x):
+    """float32 -> tf32 as ``cvt.rna.tf32.f32`` (ties away), on any device."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _one_pass_plain(b, om, y1):
+    """K4a's and K4b's one-pass products from TF32-rounded operands, in
+    float64: ``(y0, z)``, ``t`` rounded to float32 and TF32 between K4b's
+    halves as the kernel stores and rereads it."""
+    bt = _tf32_card(b).double()
+    t = (bt.T @ _tf32_card(y1).double()).float()
+    return bt @ _tf32_card(om).double(), bt @ _tf32_card(t).double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+def test_one_pass_kernels_match_the_tf32_rounded_plain_product(shape, cuda):
+    """K4a and K4b in one TF32 pass (``gramfree_sketch_tf32``,
+    ``gramfree_gmul_tf32``): one launch each, within ONE_PASS_PLAIN_TOL of the
+    TF32-rounded plain product and ONE_PASS_TOL of float64, n2 to CARD_TOL,
+    two launches bit-identical, and the 3xTF32 form closer to float64."""
+    b, om, y1 = _card_inputs(shape, cuda)
+    counts = (tps.gramfree_sketch_tf32.launches, tps.gramfree_gmul_tf32.launches)
+    y0, n2 = tps.gramfree_sketch_tf32(b, om)
+    z = tps.gramfree_gmul_tf32(b, y1)
+    torch.cuda.synchronize()
+    assert (tps.gramfree_sketch_tf32.launches, tps.gramfree_gmul_tf32.launches) == tuple(
+        c + 1 for c in counts)
+    w_y0, w_z = _one_pass_plain(b, om, y1)
+    f_y0, f_n2 = tps.gramfree_sketch_reference(b.double(), om.double())
+    f_z = tps.gramfree_gmul_reference(b.double(), y1.double())
+    _held(n2, f_n2)
+    for got, tf, f64, three in ((y0, w_y0, f_y0, tps.gramfree_sketch(b, om)[0]),
+                                (z, w_z, f_z, tps.gramfree_gmul(b, y1))):
+        assert got.shape == tf.shape and torch.isfinite(got).all()
+        scale = float(f64.abs().max())
+        assert float((got.double() - tf).abs().max()) <= ONE_PASS_PLAIN_TOL * scale
+        err = float((got.double() - f64).abs().max())
+        assert err <= ONE_PASS_TOL * scale
+        assert float((three.double() - f64).abs().max()) < err
+    assert torch.equal(tps.gramfree_sketch_tf32(b, om)[0], y0)
+    assert torch.equal(tps.gramfree_gmul_tf32(b, y1), z)
+
+
+@pytest.mark.cuda
+def test_one_pass_kernels_issue_a_third_of_the_tensor_core_products(cuda):
+    """In the SASS of libpolar_sketch, each one-pass GEMM kernel
+    (``tc_gemm_kernel<..., 1>``) holds tf32 warpgroup products (HGMMA ...
+    TF32), a third as many as its 3xTF32 instantiation (``<..., 3>``)."""
+    tps._sketch_lib()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("polar_sketch"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    count, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[-1].strip()
+            count[fn] = 0
+        elif fn and "HGMMA" in ln and "TF32" in ln:
+            count[fn] += 1
+    gemm = {f: n for f, n in count.items() if "tc_gemm_kernel" in f}
+    one = {f.replace("Li1E", "Li3E"): n for f, n in gemm.items() if "Li1E" in f}
+    assert len(one) == 3 and all(n > 0 for n in one.values())  # K4a, K4b's two halves
+    assert all(3 * n == gemm[f] for f, n in one.items())

@@ -119,11 +119,18 @@ def test_a_sweep_at_zero_rate_only_regauges():
 
 
 def test_reduced_precision_raises_naming_item_9():
+    """Reduced precision is ported (``utils/precision.py``): on the CPU
+    ``"bfloat16"`` gives the float32 sweep bit for bit, and a name outside
+    the table raises."""
     t = _carry(_jax_model())
     phi, y1h = _phi_y1h(*_data())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    got, _ = tos.onesite_sweep(t, phi, y1h, 0.1, 0.0, False,
+                               tos.OneSiteConfig(matmul_precision="bfloat16"))
+    want, _ = tos.onesite_sweep(t, phi, y1h, 0.1, 0.0, False, tos.OneSiteConfig())
+    assert torch.equal(got.sites, want.sites) and torch.equal(got.w, want.w)
+    with pytest.raises(ValueError, match="unknown matmul precision"):
         tos.onesite_sweep(t, phi, y1h, 0.1, 0.0, False,
-                          tos.OneSiteConfig(matmul_precision="bfloat16"))
+                          tos.OneSiteConfig(matmul_precision="bf16"))
 
 
 def _train_both(j, n_epochs, **kw):

@@ -303,7 +303,9 @@ def test_step_metrics_off_gives_zeros():
 @pytest.mark.parametrize("kw,error,match", [
     # dist_split is ported: without its mesh it refuses as the JAX package does
     (dict(dist_split="cholqr"), ValueError, "dist_mesh"),
-    (dict(matmul_precision="tensorfloat32"), NotImplementedError, "full float32"),
+    # every name of utils/precision.py is ported; a name outside it raises, as
+    # the JAX package's knob does
+    (dict(matmul_precision="tf32"), ValueError, "unknown matmul precision"),
 ])
 def test_unported_configurations_raise_naming_their_item(kw, error, match):
     _, t, x, y = _models(N=6, M=4, L=2, B=8, dtype="float32")
