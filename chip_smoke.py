@@ -9,12 +9,13 @@ Run from the root of the repository, on a machine with one CUDA card:
 
     python3 chip_smoke.py [--other-csrc DIR]
 
-With --other-csrc, K3, K7, K2, K1 and K8 built from another csrc directory
-(e.g. the parent commit's, from `git archive HEAD tensornetworkforml_torch/csrc`)
-are timed beside this build's in turns, and their rows of the kernels line
-give the other build's time as parent_ms; K7 is also held bit for bit against
-the other build's K7 at its four shapes, and K8 against the other build's K8
-at its three.
+With --other-csrc, K3, K7, K2, K1, K8, K4a, K4b (both forms) and K5 built from
+another csrc directory (e.g. the parent commit's, from `git archive HEAD
+tensornetworkforml_torch/csrc`) are timed beside this build's in turns, and
+their rows of the kernels line give the other build's time as parent_ms; K7 is
+also held bit for bit against the other build's K7 at its four shapes, K8
+against the other build's K8 at its three, and the 3xTF32 K4a and K4b at M=512
+and K5 at the flagship and M=512 shapes against the other build's.
 
 The model is the flagship: 10-class pooled MNIST, N=196, M=128, D=2, L=10,
 linear/MSE, random weights from a seed, synthetic pooled images; the large
@@ -24,8 +25,9 @@ phase trains the same model at M=512. Phases:
                 all started together) and print ptxas's report for each;
                 the libraries of K4a, K4b and K5 (libpolar_sketch) and of K8
                 (libpolar_iterate) must hold tf32 warpgroup products (HGMMA)
-                in their SASS, and each one-pass GEMM kernel of
-                libpolar_sketch a third as many as its 3xTF32 form;
+                in their SASS: each one-pass GEMM kernel of libpolar_sketch
+                one a k step of its chunk a 64-row block, each 3xTF32 one
+                three;
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 K3 (chain) at the serving shapes (the form that ran named at
                 each: latency or throughput), K2 (pre-split step) and K1
@@ -227,6 +229,7 @@ non-zero too.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -527,10 +530,15 @@ KERNELS = {  # source name -> the function that builds and binds it
 
 
 # --other-csrc: the sources built from another csrc directory, and the
-# module whose library each one stands in for
-OTHER_SOURCES = {"env_scan": env_scan, "two_site_step": step_kernel,
-                 "presplit": presplit_kernel, "polar_iterate": polar_split}
+# module function that loads the library each one stands in for
+OTHER_SOURCES = {"env_scan": (env_scan, "_lib"), "two_site_step": (step_kernel, "_lib"),
+                 "presplit": (presplit_kernel, "_lib"), "polar_iterate": (polar_split, "_lib"),
+                 "polar_sketch": (polar_split, "_sketch_lib")}
 OTHER = {}  # source name -> the other build's library
+# the scratch of the one-pass K4a and K4b in a build from before they had
+# scratch functions of their own: the 3xTF32 form's
+LEGACY_SCRATCH = {"tnml_gramfree_sketch_tf32": "tnml_gramfree_sketch_scratch_floats",
+                  "tnml_gramfree_gmul_tf32": "tnml_gmul_scratch_floats"}
 
 
 def build_other(name: str, tmp: str) -> str:
@@ -547,9 +555,8 @@ def build_other(name: str, tmp: str) -> str:
 def bind_other(name: str, so: str):
     """The other build of ``name`` loaded and bound like this build's library:
     every C entry this build's wrapper binds that the other one has."""
-    import ctypes
-
-    lib, ref = ctypes.CDLL(so), OTHER_SOURCES[name]._lib()
+    module, attr = OTHER_SOURCES[name]
+    lib, ref = ctypes.CDLL(so), getattr(module, attr)()
     for sym in [k for k in vars(ref) if k.startswith("tnml_")]:
         if hasattr(lib, sym):
             getattr(lib, sym).argtypes = getattr(ref, sym).argtypes
@@ -559,17 +566,27 @@ def bind_other(name: str, so: str):
 
 class using_other:
     """Within the block, the wrapper of ``name``'s module launches the other
-    build's library."""
+    build's library (polar_sketch's scratch sized by that library's own
+    functions)."""
 
     def __init__(self, name: str):
-        self.module = OTHER_SOURCES[name]
-        self.lib, self.own = OTHER[name], self.module._lib
+        (self.module, self.attr), self.lib = OTHER_SOURCES[name], OTHER[name]
+        self.own = getattr(self.module, self.attr)
+        self.scratch = {}
+        if name == "polar_sketch":
+            self.scratch = {e: f if hasattr(self.lib, f) else LEGACY_SCRATCH[e]
+                            for e, f in polar_split._SCRATCH.items()}
 
     def __enter__(self):
-        self.module._lib = lambda: self.lib
+        setattr(self.module, self.attr, lambda: self.lib)
+        self.saved = dict(polar_split._SCRATCH)
+        polar_split._SCRATCH.update(self.scratch)
+        polar_split._scratch_floats.cache_clear()
 
     def __exit__(self, *exc):
-        self.module._lib = self.own
+        setattr(self.module, self.attr, self.own)
+        polar_split._SCRATCH.update(self.saved)
+        polar_split._scratch_floats.cache_clear()
 
 
 def phase_build() -> None:
@@ -627,10 +644,20 @@ def tensor_core_check() -> None:
             one_pass_check(sass.stdout)
 
 
+# HGMMA TF32 instructions a GEMM kernel of libpolar_sketch holds: a one-pass
+# kernel one product a k step of 8 of its chunk of 32 for each of its MW
+# 64-row blocks (no lo terms; MW is its first template argument, 2 for K4a's
+# 256 x 128 tiles, 1 for K4b's 128 x 256), a 3xTF32 one three (lo.hi, hi.lo,
+# hi.hi) a k step of its chunk of 16, as before the one-pass form had a
+# kernel of its own
+ONE_PASS_HGMMA, TC_HGMMA = 4, 6
+
+
 def one_pass_check(sass: str) -> None:
     """K4a's and K4b's one-pass TF32 form: each one-pass GEMM kernel of
-    libpolar_sketch (tc_gemm_kernel<..., 1>: K4a and K4b's two halves) holds
-    HGMMA ... TF32, a third as many as its 3xTF32 instantiation (<..., 3>)."""
+    libpolar_sketch (tf1_gemm_kernel<MW, ...>: K4a and K4b's two halves)
+    holds HGMMA ... TF32, MW x ONE_PASS_HGMMA of them; each 3xTF32
+    instantiation (tc_gemm_kernel) keeps its TC_HGMMA."""
     count, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -638,14 +665,17 @@ def one_pass_check(sass: str) -> None:
             count[fn] = 0
         elif fn and "HGMMA" in ln and "TF32" in ln:
             count[fn] += 1
-    one = {f: n for f, n in count.items() if "tc_gemm_kernel" in f and "Li1E" in f}
-    three = {f: count.get(f.replace("Li1E", "Li3E"), 0) for f in one}
-    if len(one) != 3 or not all(n > 0 and 3 * n == three[f] for f, n in one.items()):
-        fail(f"K4a/K4b's one-pass TF32 form: HGMMA TF32 counts {one} against the 3xTF32 "
-             f"form's {three}")
-    print(f"[build] K4a/K4b one-pass TF32: {len(one)} GEMM kernels of libpolar_sketch hold "
-          f"{sorted(one.values())} HGMMA TF32 instructions each, a third of the 3xTF32 "
-          f"instantiations' {sorted(three.values())}")
+    one = {f: n for f, n in count.items() if "tf1_gemm_kernel" in f}
+    three = {f: n for f, n in count.items() if "tc_gemm_kernel" in f}
+    want = {f: ONE_PASS_HGMMA * int(f.split("tf1_gemm_kernelILi")[1][0]) for f in one}
+    if (len(one) != 3 or one != want or len(three) != 3
+            or any(n != TC_HGMMA for n in three.values())):
+        fail(f"K4a/K4b's one-pass TF32 form: HGMMA TF32 counts {one} (want {want}), the 3xTF32 "
+             f"form's {three} (want {TC_HGMMA} each)")
+    print(f"[build] K4a/K4b one-pass TF32: {len(one)} GEMM kernels of libpolar_sketch "
+          f"(tf1_gemm_kernel) hold {sorted(one.values())} HGMMA TF32 instructions, one a k step "
+          f"of 8 a 64-row block, no lo terms; the 3xTF32 instantiations (tc_gemm_kernel) "
+          f"{sorted(three.values())}")
 
 
 # ---- phase 3: each kernel against its plain version ------------------------
@@ -2572,6 +2602,8 @@ def phase_large_timing(mps, large, captured, xb, yb) -> dict:
         lambda: polar_split.polar_sketch_gram(b128, om128),
         lambda: polar_split.polar_sketch_gram_reference(b128, om128),
         library=lambda: (b128 @ om128, b128 @ b128.T))
+    if "polar_sketch" in OTHER:
+        ms.update(other_sketch_turns(bmat, om, y1, b128, om128, shape))
 
     sweep_ms = {}
     for route in ("auto", "off", "off", "auto"):
@@ -2597,6 +2629,43 @@ def phase_large_timing(mps, large, captured, xb, yb) -> dict:
         host_time_line(f"M={M_LARGE} {names[route]} sweep",
                        lambda: large_sweep(mps, xb, yb, route))
     return ms
+
+
+def other_sketch_turns(bmat, om, y1, b128, om128, shape) -> dict:
+    """K4a and K4b (both forms) on the M=512 step's inputs and K5 at the
+    flagship and M=512 shapes, with the other build of polar_sketch.cu and
+    this one in turns. The 3xTF32 forms and K5, whose code this build shares
+    with the other, must give its bits; the one-pass forms are timed only.
+    The other build's mean ms by key ("parent", kernel)."""
+    flag = f"I={b128.shape[0]} J={b128.shape[1]} q={M} (flagship two-stage)"
+    cases = (
+        ("gramfree_sketch", f"gramfree_sketch {shape}", True,
+         lambda: polar_split.gramfree_sketch(bmat, om)),
+        ("gramfree_gmul", f"gramfree_gmul {shape}", True,
+         lambda: polar_split.gramfree_gmul(bmat, y1)),
+        ("gramfree_sketch_tf32", f"gramfree_sketch_tf32 {shape}", False,
+         lambda: polar_split.gramfree_sketch_tf32(bmat, om)),
+        ("gramfree_gmul_tf32", f"gramfree_gmul_tf32 {shape}", False,
+         lambda: polar_split.gramfree_gmul_tf32(bmat, y1)),
+        (("polar_sketch_gram", M_LARGE), f"polar_sketch_gram {shape}", True,
+         lambda: polar_split.polar_sketch_gram(bmat, om)),
+        ("polar_sketch_gram", f"polar_sketch_gram {flag}", True,
+         lambda: polar_split.polar_sketch_gram(b128, om128)))
+    out, held = {}, []
+    for key, what, same, fn in cases:
+        if same:
+            ours = fn()
+            with using_other("polar_sketch"):
+                theirs = fn()
+            torch.cuda.synchronize()
+            ours = ours if isinstance(ours, tuple) else (ours,)
+            theirs = theirs if isinstance(theirs, tuple) else (theirs,)
+            if not all(same_bits(a, b) for a, b in zip(ours, theirs)):
+                fail(f"{what}: not the other build's ({OTHER_CSRC}) bits")
+            held.append(what)
+        out[("parent", key)] = other_build_turns(what, "polar_sketch", fn, 20)
+    print(f"[kernel] bit for bit the other build's ({OTHER_CSRC}): " + "; ".join(held))
+    return out
 
 
 def phase_wide_timing(wide, xb, yb, cap) -> dict:
@@ -3798,8 +3867,9 @@ def one_pass_plain(bmat, om, y1):
 def compare_one_pass(name, bmat, om, y1) -> dict:
     """One-pass K4a and K4b against the TF32-rounded plain product
     (ONE_PASS_PLAIN_TOL) and float64 (ONE_PASS_TOL), n2 against float64
-    (RED_TOL); their error against the float32 plain version, the 3xTF32
-    form's against float64 and cuBLAS in TF32 against float64 printed."""
+    (RED_TOL), and a second launch of each bit for bit; their error against
+    the float32 plain version, the 3xTF32 form's against float64 and cuBLAS
+    in TF32 against float64 printed."""
     y0, n2 = polar_split.gramfree_sketch_tf32(bmat, om)
     z = polar_split.gramfree_gmul_tf32(bmat, y1)
     y0_3, z_3 = polar_split.gramfree_sketch(bmat, om)[0], polar_split.gramfree_gmul(bmat, y1)
@@ -3831,8 +3901,12 @@ def compare_one_pass(name, bmat, om, y1) -> dict:
               f"(tol {ONE_PASS_TOL:g}){', n2 %.3g (tol %g)' % (n2_rel, RED_TOL) if kernel == 'gramfree_sketch_tf32' else ''}"
               f" {'ok' if good else 'FAIL'}; max|kernel - float32 plain| {out[kernel]:.3g}; "
               f"3xTF32 form against float64 {rel['3x']:.3g}, cuBLAS in TF32 {rel['lib']:.3g}")
-    if not ok or n2_rel > RED_TOL:
-        fail(f"{name}: the one-pass K4a or K4b disagrees with its TF32-rounded plain product")
+    again = (*polar_split.gramfree_sketch_tf32(bmat, om), polar_split.gramfree_gmul_tf32(bmat, y1))
+    repeat = all(same_bits(a, b) for a, b in zip((y0, n2, z), again))
+    print(f"[precision] {name}: a second launch of each gives the first's bits: {repeat}")
+    if not ok or n2_rel > RED_TOL or not repeat:
+        fail(f"{name}: the one-pass K4a or K4b disagrees with its TF32-rounded plain product, "
+             "or with itself")
     return out
 
 
@@ -3962,8 +4036,9 @@ def phase_precision(mps, big, large, xb, yb, x_fresh, y_fresh, brick, onesite) -
     """[precision]: K4a and K4b's one-pass TF32 form against its TF32-rounded
     plain product and float64 at the M=512 step's inputs and a ragged shape,
     gramfree_split(precision=PRECISION) at M=512 (the main path of the one-pass
-    form: one launch each), the two timed in turns with the 3xTF32 form and
-    cuBLAS in TF32; flagship sweeps under PRECISION on the three engines; an
+    form: one launch each; with --other-csrc also timed in turns with the
+    other build), the two timed in turns with the 3xTF32 form and cuBLAS in
+    TF32; the one-pass plan printed; flagship sweeps under PRECISION on the three engines; an
     M=512 factored sweep; a brick and a one-site sweep against float64."""
     t_phase = time.perf_counter()
     bmat, om = large["k4a"]
@@ -4001,6 +4076,19 @@ def phase_precision(mps, big, large, xb, yb, x_fresh, y_fresh, brick, onesite) -
           f"projector {proj:.3g}")
     if not ok:
         fail(f"gramfree_split(precision={PRECISION!r}) left Q {iso1:.3g} from an isometry")
+
+    plan = (ctypes.c_int * 6)()
+    halves = []
+    for what, mnk, mw in (("K4a y0^T", (M_LARGE, I, J), 2), ("K4b t", (J, M_LARGE, I), 1),
+                          ("K4b z", (I, M_LARGE, J), 1)):
+        polar_split._sketch_lib().tnml_tf32_plan(*mnk, mw, plan)
+        halves.append(f"{what} (M, N, K) = {mnk}: {plan[0]} x {plan[1]} tiles of {plan[4]} x "
+                      f"{plan[5]}, k split {plan[2]} of {plan[3]} chunks of 32")
+    print("[precision] the one-pass plan: " + "; ".join(halves))
+    if "polar_sketch" in OTHER:
+        other_build_turns(f"gramfree_split(precision={PRECISION!r}) {shape}", "polar_sketch",
+                          lambda: polar_split.gramfree_split(bmat, M_LARGE, precision=PRECISION),
+                          10)
 
     ms = {}
 
@@ -4100,9 +4188,9 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one CUDA card and check it.")
-    ap.add_argument("--other-csrc", help="time K3, K7, K2, K1 and K8 built from this csrc "
-                    "directory beside this build's, and hold K7 to its bits (e.g. the parent "
-                    "commit's)")
+    ap.add_argument("--other-csrc", help="time K3, K7, K2, K1, K8, K4a, K4b and K5 built from "
+                    "this csrc directory beside this build's, and hold K7, K8, the 3xTF32 K4a and "
+                    "K4b and K5 to its bits (e.g. the parent commit's)")
     OTHER_CSRC = ap.parse_args().other_csrc
     kind = phase_device()
     phase_build()

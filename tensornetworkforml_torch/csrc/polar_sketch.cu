@@ -40,17 +40,22 @@
 // wrapper.
 //
 // K4a and K4b also have a one-pass TF32 form (tnml_gramfree_sketch_tf32,
-// tnml_gramfree_gmul_tf32): the same plans, scratch and fixed-order sums,
-// the tiles issuing only the hi.hi product (tc_gemm.cuh, PASSES = 1), for
-// gramfree_split under a reduced precision. Their bound is a third of the
-// 3xTF32 form's tensor work: 21.7 us for K4a and 43.4 us for K4b at M = 512
-// at 495 TFLOP/s, against 19.5 and 13.7 us of traffic.
+// tnml_gramfree_gmul_tf32) for gramfree_split under a reduced precision:
+// every product from cvt.rna-rounded operands summed in float32, on a pipeline
+// of its own (tc_tf32.cuh: the TMA and mbarriers feeding wgmma on 256 x 128
+// tiles for K4a and 128 x 256 for K4b, the m-contiguous operand rounded and transposed in registers, the k
+// split in clusters of 2 that add their tiles through distributed shared
+// memory, and past two splits one fixed-order exchange in global memory, all
+// in one launch a GEMM). Their bound is a third of the 3xTF32 form's tensor work: 21.7 us
+// for K4a and 43.4 us for K4b at M = 512 at 495 TFLOP/s, against 19.5 and
+// 13.7 us of traffic.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 #include "tc_gemm.cuh"
+#include "tc_tf32.cuh"
 
 namespace {
 
@@ -83,39 +88,6 @@ tc::Gemm gmul_second_plan(const float* b, const float* tt, float* z, int I, int 
   return g;
 }
 
-// K4a: y0 = B Omega, n2 = |B|_F^2, in PASSES tensor-core passes
-template <int PASSES>
-int gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch, int I,
-                    int J, int q, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  tc::Gemm g = tc::sketch_plan(b, om, y0, I, J, q);
-  g.n2p = scratch;
-  g.cp = scratch + (size_t)g.S * g.nM;
-  cudaError_t err = tc::launch<true, false, PASSES>(g, st);
-  if (err != cudaSuccess) return (int)err;
-  return tc::sum_splits(g, n2, nullptr, st);
-}
-
-// K4b: z = B (B^T y1), in PASSES tensor-core passes
-template <int PASSES>
-int gramfree_gmul(const float* b, const float* y1, float* z, float* scratch, int I, int J, int q,
-                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* tt = scratch;
-  float* parts = scratch + (size_t)q * J;
-  tc::Gemm g1 = gmul_first_plan(b, y1, tt, I, J, q);
-  g1.cp = parts;
-  cudaError_t err = tc::launch<false, false, PASSES>(g1, st);
-  if (err != cudaSuccess) return (int)err;
-  int e = tc::sum_splits(g1, nullptr, nullptr, st);
-  if (e != 0) return e;
-  tc::Gemm g2 = gmul_second_plan(b, tt, z, I, J, q);
-  g2.cp = parts;
-  err = tc::launch<true, true, PASSES>(g2, st);
-  if (err != cudaSuccess) return (int)err;
-  return tc::sum_splits(g2, nullptr, nullptr, st);
-}
-
 }  // namespace
 
 extern "C" {
@@ -139,16 +111,47 @@ long tnml_gmul_scratch_floats(int I, int J, int q) {
   return (long)q * J + std::max(tc::partial_floats(g1), tc::partial_floats(g2));
 }
 
+// scratch of the one-pass K4a, in floats: n2's partial sums, then Omega and B
+// copied to 16-byte rows where they need it
+long tnml_gramfree_sketch_tf32_scratch_floats(int I, int J, int q) {
+  return tf1::sketch_layout(I, J, q).floats;
+}
+
+// scratch of the one-pass K4b, in floats: y1^T and t^T, then B copied to
+// 16-byte rows where it needs it
+long tnml_gmul_tf32_scratch_floats(int I, int J, int q) {
+  return tf1::gmul_layout(I, J, q).floats;
+}
+
+// the one-pass forms' plan of a GEMM of C (M, N) over k = K on tiles of
+// 128 mw x 256 / mw (mw = 2 for K4a, 1 for K4b's halves): {tiles in m, in n,
+// the k split, chunks of 32 a split, the tile's rows, its columns}
+void tnml_tf32_plan(int M, int N, int K, int mw, int* out) {
+  const tf1::Gemm g = mw == 2 ? tf1::plan<2>(M, N, K) : tf1::plan<1>(M, N, K);
+  out[0] = g.nM;
+  out[1] = g.nN;
+  out[2] = g.S;
+  out[3] = g.kc;
+  out[4] = 128 * (mw == 2 ? 2 : 1);
+  out[5] = 256 / (mw == 2 ? 2 : 1);
+}
+
 // K4a: y0 = B Omega, n2 = |B|_F^2 (3xTF32)
 int tnml_gramfree_sketch(const float* b, const float* om, float* y0, float* n2, float* scratch,
                          int I, int J, int q, void* stream) {
-  return gramfree_sketch<3>(b, om, y0, n2, scratch, I, J, q, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  tc::Gemm g = tc::sketch_plan(b, om, y0, I, J, q);
+  g.n2p = scratch;
+  g.cp = scratch + (size_t)g.S * g.nM;
+  cudaError_t err = tc::launch<true, false>(g, st);
+  if (err != cudaSuccess) return (int)err;
+  return tc::sum_splits(g, n2, nullptr, st);
 }
 
-// K4a in one TF32 pass; the same scratch
+// K4a in one TF32 pass (one launch; its own scratch)
 int tnml_gramfree_sketch_tf32(const float* b, const float* om, float* y0, float* n2,
                               float* scratch, int I, int J, int q, void* stream) {
-  return gramfree_sketch<1>(b, om, y0, n2, scratch, I, J, q, stream);
+  return (int)tf1::sketch(b, om, y0, n2, scratch, I, J, q, (cudaStream_t)stream);
 }
 
 // K5: y = B Omega, G = B B^T, n2 = |B|_F^2
@@ -160,13 +163,26 @@ int tnml_sketch_gram(const float* b, const float* om, float* y, float* g, float*
 // K4b: z = B (B^T y1) (3xTF32)
 int tnml_gramfree_gmul(const float* b, const float* y1, float* z, float* scratch, int I, int J,
                        int q, void* stream) {
-  return gramfree_gmul<3>(b, y1, z, scratch, I, J, q, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  float* tt = scratch;
+  float* parts = scratch + (size_t)q * J;
+  tc::Gemm g1 = gmul_first_plan(b, y1, tt, I, J, q);
+  g1.cp = parts;
+  cudaError_t err = tc::launch<false, false>(g1, st);
+  if (err != cudaSuccess) return (int)err;
+  int e = tc::sum_splits(g1, nullptr, nullptr, st);
+  if (e != 0) return e;
+  tc::Gemm g2 = gmul_second_plan(b, tt, z, I, J, q);
+  g2.cp = parts;
+  err = tc::launch<true, true>(g2, st);
+  if (err != cudaSuccess) return (int)err;
+  return tc::sum_splits(g2, nullptr, nullptr, st);
 }
 
-// K4b in one TF32 pass; the same scratch
+// K4b in one TF32 pass (y1's transpose, then the two halves; its own scratch)
 int tnml_gramfree_gmul_tf32(const float* b, const float* y1, float* z, float* scratch, int I,
                             int J, int q, void* stream) {
-  return gramfree_gmul<1>(b, y1, z, scratch, I, J, q, stream);
+  return (int)tf1::gmul(b, y1, z, scratch, I, J, q, (cudaStream_t)stream);
 }
 
 const char* tnml_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,8 +1,6 @@
 // A float32 block GEMM on Hopper's tensor cores in 3xTF32, for the port's
 // J-streaming reductions K4a, K4b and K5 (polar_sketch.cu) and K8's first
-// stage (polar_iterate.cu); and its one-pass TF32 form (PASSES = 1), which
-// K4a and K4b run under a reduced precision (gramfree_split's
-// precision="tensorfloat32", "high" or "bfloat16").
+// stage (polar_iterate.cu).
 //
 // One block of two warpgroups (256 threads) computes a 128 x 128 tile of
 //   C (M, N) = sum_k A(m, k) B(n, k)
@@ -27,11 +25,6 @@
 // checks hold. TF32 alone keeps ~2^-11 and reads above that limit on an
 // ill-scaled B (tests/test_torch_gramfree.py: emulated on the CPU, and
 // cuBLAS with TF32 allowed as a control on the card).
-//
-// One pass (PASSES = 1): the same tiles, ring and conversion (cvt.rna
-// kept), with only hi stored and one wgmma (hi.hi) a k step of 8: each
-// product rounds its operands to TF32's 10-bit mantissa and sums in float32,
-// a third of the tensor-core work.
 //
 // Pipeline, per k chunk of BK = 16:
 //   cp.async    a ring of STAGES raw float32 stages in shared memory, filled
@@ -227,10 +220,9 @@ __device__ __forceinline__ void load_chunk(float* raw, const float* p, int ld, b
   }
 }
 
-// split one operand's raw chunk into hi and lo (with LO; hi alone for the
-// one-pass form), stored K-major as core matrices; with `sq`, add the
-// squares of the float32 values to ss
-template <bool KCONT, int R, bool LO>
+// split one operand's raw chunk into hi and lo, stored K-major as core
+// matrices; with `sq`, add the squares of the float32 values to ss
+template <bool KCONT, int R>
 __device__ __forceinline__ void convert_chunk(const float* raw, float* hi, float* lo, bool sq,
                                               float& ss) {
   const int tid = threadIdx.x;
@@ -250,18 +242,18 @@ __device__ __forceinline__ void convert_chunk(const float* raw, float* hi, float
     for (int j = 0; j < 4; ++j) {
       if (sq) ss = fmaf(v[j], v[j], ss);
       h[j] = to_tf32(v[j]);
-      if (LO) l[j] = to_tf32(v[j] - h[j]);
+      l[j] = to_tf32(v[j] - h[j]);
     }
     const int o = core_offset<R>(r, kq);
     *reinterpret_cast<float4*>(hi + o) = make_float4(h[0], h[1], h[2], h[3]);
-    if (LO) *reinterpret_cast<float4*>(lo + o) = make_float4(l[0], l[1], l[2], l[3]);
+    *reinterpret_cast<float4*>(lo + o) = make_float4(l[0], l[1], l[2], l[3]);
   }
 }
 
 // one block: output tile (mt, nt) over k split s; with MIRROR (a tile of G's
 // upper triangle, M == N) each element on or above the diagonal is written at
-// (row, col) and (col, row). PASSES: 3 (3xTF32) or 1 (one TF32 pass).
-template <bool A_KCONT, bool B_KCONT, bool MIRROR, int PASSES = 3>
+// (row, col) and (col, row)
+template <bool A_KCONT, bool B_KCONT, bool MIRROR>
 __device__ __forceinline__ void gemm_tile(const Gemm& g, int mt, int nt, int s, float* smem,
                                           float* red) {
   float* raw = smem;                         // STAGES x (A chunk, B chunk)
@@ -301,9 +293,9 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int mt, int nt, int s, 
     __syncthreads();  // ... in both warpgroups; every thread's copies of chunk c visible
     issue(c + STAGES - 1);  // into the stage chunk c - 1 used, converted before the barrier
     const float* st = raw + (c % STAGES) * 2 * RAW;
-    convert_chunk<A_KCONT, BM, PASSES == 3>(st, a_hi, a_lo, sq, ss);
+    convert_chunk<A_KCONT, BM>(st, a_hi, a_lo, sq, ss);
     float unused = 0.f;
-    convert_chunk<B_KCONT, BN, PASSES == 3>(st + RAW, b_hi, b_lo, false, unused);
+    convert_chunk<B_KCONT, BN>(st + RAW, b_hi, b_lo, false, unused);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
     __syncthreads();
     wgmma_fence();
@@ -313,13 +305,11 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int mt, int nt, int s, 
       // k quads 2 ks and 2 ks + 1; this warpgroup's 64 rows of A, all of B
       const int ao = core_offset<BM>(wg * 64, 2 * ks), bo = core_offset<BN>(0, 2 * ks);
       const uint64_t dah = make_desc(a_hi + ao, BM * 16, 128);
+      const uint64_t dal = make_desc(a_lo + ao, BM * 16, 128);
       const uint64_t dbh = make_desc(b_hi + bo, BN * 16, 128);
-      if (PASSES == 3) {
-        const uint64_t dal = make_desc(a_lo + ao, BM * 16, 128);
-        const uint64_t dbl = make_desc(b_lo + bo, BN * 16, 128);
-        wgmma_tf32(d, dal, dbh);
-        wgmma_tf32(d, dah, dbl);
-      }
+      const uint64_t dbl = make_desc(b_lo + bo, BN * 16, 128);
+      wgmma_tf32(d, dal, dbh);
+      wgmma_tf32(d, dah, dbl);
       wgmma_tf32(d, dah, dbh);
     }
     wgmma_commit();
@@ -363,12 +353,12 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int mt, int nt, int s, 
   }
 }
 
-template <bool A_KCONT, bool B_KCONT, int PASSES>
+template <bool A_KCONT, bool B_KCONT>
 __global__ void __launch_bounds__(NT, 2) tc_gemm_kernel(Gemm g) {
   extern __shared__ __align__(128) float smem[];
   __shared__ float red[NT];
-  gemm_tile<A_KCONT, B_KCONT, false, PASSES>(g, blockIdx.x % g.nM, blockIdx.x / g.nM, blockIdx.y,
-                                             smem, red);
+  gemm_tile<A_KCONT, B_KCONT, false>(g, blockIdx.x % g.nM, blockIdx.x / g.nM, blockIdx.y, smem,
+                                     red);
 }
 
 // tile t of the upper triangle of an n x n tile grid, row by row: (it, jt), it <= jt
@@ -462,17 +452,17 @@ inline int sum_splits(const Gemm& y, float* n2, const Gemm* gram, cudaStream_t s
   return (int)pdl::launch(split_sum_kernel, y.S > 1 ? cdiv_l(n, NT) : 1, NT, 0, stream, pdl, f);
 }
 
-template <bool A_KCONT, bool B_KCONT, int PASSES = 3>
+template <bool A_KCONT, bool B_KCONT>
 cudaError_t launch(const Gemm& g, cudaStream_t stream) {
   static bool ready = false;
   if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(tc_gemm_kernel<A_KCONT, B_KCONT, PASSES>,
+    const cudaError_t err = cudaFuncSetAttribute(tc_gemm_kernel<A_KCONT, B_KCONT>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)SMEM_BYTES);
     if (err != cudaSuccess) return err;
     ready = true;
   }
-  tc_gemm_kernel<A_KCONT, B_KCONT, PASSES><<<dim3(g.nM * g.nN, g.S), NT, SMEM_BYTES, stream>>>(g);
+  tc_gemm_kernel<A_KCONT, B_KCONT><<<dim3(g.nM * g.nN, g.S), NT, SMEM_BYTES, stream>>>(g);
   return cudaGetLastError();
 }
 

@@ -37,4 +37,15 @@ __all__ = [
     "transfer_suffix_stack",
     "transfer_append",
     "env_apply_site",
+    "truncated_svd_split",
 ]
+
+
+def __getattr__(name):
+    # ops.svd imports utils, whose checkpoints import the models, which import
+    # this package: truncated_svd_split is bound at first use, not at import
+    if name == "truncated_svd_split":
+        from tensornetworkforml_torch.ops.svd import truncated_svd_split
+
+        return truncated_svd_split
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

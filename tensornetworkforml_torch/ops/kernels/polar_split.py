@@ -26,7 +26,8 @@ kernel ``polar_iterate_pallas``); on a CPU tensor it runs the plain version
 (K4b: ``z = B (B^T y1)``), with the polar orthonormalisations (or CholQR2)
 as plain products in between. Under a reduced ``precision`` the split runs
 K4a and K4b in one TF32 pass instead (``gramfree_sketch_tf32`` and
-``gramfree_gmul_tf32``, the same library). ``polar_split_two_stage`` is the split as
+``gramfree_gmul_tf32``, the same library, on a pipeline of their own,
+``csrc/tc_tf32.cuh``). ``polar_split_two_stage`` is the split as
 ``polar_sketch_gram`` (K5: ``y``, ``G`` and ``n2`` in one pass over B)
 followed by K1. The three reductions are ``csrc/polar_sketch.cu`` on a card
 (all three on the tensor cores in 3xTF32, ``csrc/tc_gemm.cuh``; K5's G from
@@ -330,10 +331,11 @@ def _sketch_lib() -> ctypes.CDLL:
         for fn in (lib.tnml_gramfree_sketch, lib.tnml_gramfree_sketch_tf32, lib.tnml_sketch_gram,
                    lib.tnml_gramfree_gmul, lib.tnml_gramfree_gmul_tf32):
             fn.restype = ctypes.c_int
-        for fn in (lib.tnml_sketch_scratch_floats, lib.tnml_gramfree_sketch_scratch_floats,
-                   lib.tnml_gmul_scratch_floats):
+        for fn in (lib.tnml_sketch_scratch_floats, *(getattr(lib, f) for f in _SCRATCH.values())):
             fn.argtypes = [i, i, i]
             fn.restype = ctypes.c_long
+        lib.tnml_tf32_plan.argtypes = [i, i, i, i, p]
+        lib.tnml_tf32_plan.restype = None
         lib.tnml_cuda_error_string.argtypes = [i]
         lib.tnml_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -388,12 +390,28 @@ def _scratch_floats(fn: str, I: int, J: int, q: int) -> int:
     return getattr(_sketch_lib(), fn)(I, J, q)
 
 
+# each C entry of K4a and K4b and the function that sizes its scratch
+_SCRATCH = {
+    "tnml_gramfree_sketch": "tnml_gramfree_sketch_scratch_floats",
+    "tnml_gramfree_sketch_tf32": "tnml_gramfree_sketch_tf32_scratch_floats",
+    "tnml_gramfree_gmul": "tnml_gmul_scratch_floats",
+    "tnml_gramfree_gmul_tf32": "tnml_gmul_tf32_scratch_floats",
+}
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data does not start on a 16-byte
+    boundary: the one-pass forms read their operands with the TMA, which
+    needs one (a fresh allocation starts on a 512-byte one)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch_sketch(entry: str, bmat: torch.Tensor, om: torch.Tensor):
     """K4a's launch through the C entry ``entry`` (either form): ``(y0, n2)``."""
     (I, J), q = bmat.shape, om.shape[1]
     y0 = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
     n2 = torch.empty((1, 1), dtype=torch.float32, device=bmat.device)
-    scratch = _scratch(_scratch_floats("tnml_gramfree_sketch_scratch_floats", I, J, q), bmat)
+    scratch = _scratch(_scratch_floats(_SCRATCH[entry], I, J, q), bmat)
     _run(entry, bmat, lambda lib, stream: getattr(lib, entry)(
         bmat.data_ptr(), om.data_ptr(), y0.data_ptr(), n2.data_ptr(), scratch.data_ptr(),
         I, J, q, stream))
@@ -404,7 +422,7 @@ def _launch_gmul(entry: str, bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tens
     """K4b's launch through the C entry ``entry`` (either form): ``z``."""
     (I, J), q = bmat.shape, y1.shape[1]
     z = torch.empty((I, q), dtype=torch.float32, device=bmat.device)
-    scratch = _scratch(_scratch_floats("tnml_gmul_scratch_floats", I, J, q), bmat)
+    scratch = _scratch(_scratch_floats(_SCRATCH[entry], I, J, q), bmat)
     _run(entry, bmat, lambda lib, stream: getattr(lib, entry)(
         bmat.data_ptr(), y1.data_ptr(), z.data_ptr(), scratch.data_ptr(), I, J, q, stream))
     return z
@@ -430,7 +448,9 @@ def gramfree_sketch_tf32(bmat: torch.Tensor, om: torch.Tensor):
     """K4a in one TF32 pass: ``gramfree_sketch``'s outputs with each
     product's operands rounded to TF32 (``cvt.rna``) and summed in float32
     on the tensor cores, a third of the 3xTF32 form's tensor work; ``n2``
-    still sums the float32 squares. Its plain version is the same float32
+    still sums the float32 squares. One launch of its own pipeline
+    (``csrc/tc_tf32.cuh``: ``y0^T = om^T B^T`` with ``om`` rounded in
+    registers and B in place). Its plain version is the same float32
     product, ``gramfree_sketch_reference``.
 
     CPU tensors run ``gramfree_sketch_reference``. CUDA tensors must be
@@ -439,7 +459,7 @@ def gramfree_sketch_tf32(bmat: torch.Tensor, om: torch.Tensor):
     """
     if not _on_card("gramfree_sketch_tf32", bmat, om, 1):
         return gramfree_sketch_reference(bmat, om)
-    out = _launch_sketch("tnml_gramfree_sketch_tf32", bmat, om)
+    out = _launch_sketch("tnml_gramfree_sketch_tf32", _aligned16(bmat), _aligned16(om))
     gramfree_sketch_tf32.launches += 1
     return out
 
@@ -461,9 +481,11 @@ def gramfree_gmul(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
 
 
 def gramfree_gmul_tf32(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
-    """K4b in one TF32 pass: both halves (``t^T = y1^T B``, ``z = B t``)
-    with their operands rounded to TF32 and summed in float32 on the tensor
-    cores; ``t`` stays float32 between them. Its plain version is
+    """K4b in one TF32 pass: both halves (``t = B^T y1``, ``z = B t``) with
+    their operands rounded to TF32 and summed in float32 on the tensor cores
+    (``csrc/tc_tf32.cuh``: ``y1^T`` rounded once, then one launch a half);
+    ``t`` is summed in float32 and stored rounded to TF32, the rounding the
+    second half applies to it. Its plain version is
     ``gramfree_gmul_reference``.
 
     CPU tensors run ``gramfree_gmul_reference``. CUDA tensors must be float32
@@ -472,7 +494,7 @@ def gramfree_gmul_tf32(bmat: torch.Tensor, y1: torch.Tensor) -> torch.Tensor:
     """
     if not _on_card("gramfree_gmul_tf32", bmat, y1, 0):
         return gramfree_gmul_reference(bmat, y1)
-    z = _launch_gmul("tnml_gramfree_gmul_tf32", bmat, y1)
+    z = _launch_gmul("tnml_gramfree_gmul_tf32", _aligned16(bmat), _aligned16(y1))
     gramfree_gmul_tf32.launches += 1
     return z
 

@@ -537,8 +537,12 @@ def test_one_pass_kernels_match_the_tf32_rounded_plain_product(shape, cuda):
 @pytest.mark.cuda
 def test_one_pass_kernels_issue_a_third_of_the_tensor_core_products(cuda):
     """In the SASS of libpolar_sketch, each one-pass GEMM kernel
-    (``tc_gemm_kernel<..., 1>``) holds tf32 warpgroup products (HGMMA ...
-    TF32), a third as many as its 3xTF32 instantiation (``<..., 3>``)."""
+    (``tf1_gemm_kernel``: K4a and K4b's two halves, ``csrc/tc_tf32.cuh``)
+    holds tf32 warpgroup products (HGMMA ... TF32), one a k step of 8 of its
+    chunk of 32 for each 64-row block of a warpgroup (no lo terms: four for
+    K4b's halves, eight for K4a's two blocks), and each 3xTF32 instantiation
+    (``tc_gemm_kernel``) keeps its six, three a k step of its chunk of 16: a
+    one-pass product is a third of a 3xTF32 one."""
     tps._sketch_lib()
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path("polar_sketch"))],
@@ -550,7 +554,40 @@ def test_one_pass_kernels_issue_a_third_of_the_tensor_core_products(cuda):
             count[fn] = 0
         elif fn and "HGMMA" in ln and "TF32" in ln:
             count[fn] += 1
-    gemm = {f: n for f, n in count.items() if "tc_gemm_kernel" in f}
-    one = {f.replace("Li1E", "Li3E"): n for f, n in gemm.items() if "Li1E" in f}
-    assert len(one) == 3 and all(n > 0 for n in one.values())  # K4a, K4b's two halves
-    assert all(3 * n == gemm[f] for f, n in one.items())
+    one = sorted(n for f, n in count.items() if "tf1_gemm_kernel" in f)
+    three = [n for f, n in count.items() if "tc_gemm_kernel" in f]
+    assert one == [4, 4, 8]  # K4b's two halves, K4a
+    assert three == [6, 6, 6]
+
+
+def test_one_pass_operands_start_on_16_byte_boundaries():
+    """The one-pass wrappers hand the TMA operands that start on 16-byte
+    boundaries: ``_aligned16`` keeps such a tensor and copies one that does
+    not (a contiguous view one float in), values unchanged; on the CPU the
+    one-pass wrappers of such a view give the plain version's result."""
+    rng = np.random.default_rng(11)
+    flat = torch.as_tensor(rng.standard_normal(1 + 24 * 40), dtype=torch.float32)
+    b = flat[1:].view(24, 40)  # contiguous, 4 bytes past an aligned start
+    assert b.is_contiguous() and b.data_ptr() % 16 == 4
+    fixed = tps._aligned16(b)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, b)
+    aligned = torch.as_tensor(rng.standard_normal((24, 40)), dtype=torch.float32)
+    assert tps._aligned16(aligned) is aligned
+    om = torch.as_tensor(rng.standard_normal((40, 8)), dtype=torch.float32)
+    y1 = torch.as_tensor(rng.standard_normal((24, 8)), dtype=torch.float32)
+    for got, want in zip(tps.gramfree_sketch_tf32(b, om), tps.gramfree_sketch_reference(b, om)):
+        assert torch.equal(got, want)
+    assert torch.equal(tps.gramfree_gmul_tf32(b, y1), tps.gramfree_gmul_reference(b, y1))
+
+
+@pytest.mark.parametrize("entry", sorted(tps._SCRATCH))
+def test_every_entry_names_its_scratch_function(entry):
+    """Each C entry of K4a and K4b sizes its scratch with a function of its
+    own form: the one-pass entries with the one-pass pipeline's layouts, the
+    3xTF32 ones with the 3xTF32 core's, as ``csrc/polar_sketch.cu`` exports
+    them."""
+    src = (_build.CSRC / "polar_sketch.cu").read_text()
+    name = tps._SCRATCH[entry]
+    assert f"long {name}(int I, int J, int q)" in src and f"int {entry}(" in src
+    assert name.startswith("tnml_gramfree_sketch" if "sketch" in entry else "tnml_gmul")
+    assert name.endswith("_tf32_scratch_floats") == entry.endswith("_tf32")

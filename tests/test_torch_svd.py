@@ -74,6 +74,24 @@ def test_svd_split_matches_jax(split_mode, cap, jsvd):
     assert live == {"none": 8, "keep": 5}.get(cap, live) and 0 < live
 
 
+def test_ops_exports_truncated_svd_split_as_the_jax_package_does():
+    """``truncated_svd_split`` is public in ``ops`` (``__all__`` and the name),
+    as in the JAX package, and is the split above: its reconstruction matches
+    the JAX package's export on the same matrix."""
+    import jax.numpy as jnp
+
+    import tensornetworkforml_torch.ops as tops
+    import tensornetworkforml_tpu.ops as jops
+    from tensornetworkforml_torch.ops import truncated_svd_split
+
+    assert "truncated_svd_split" in tops.__all__ and "truncated_svd_split" in jops.__all__
+    assert truncated_svd_split is tsvd.truncated_svd_split
+    b = _bmat(12, 30, seed=5)
+    jl, jr = jops.truncated_svd_split(jnp.asarray(b), 6, "svd")
+    tl, tr = truncated_svd_split(torch.as_tensor(b), 6, "svd")
+    _close(tl @ tr, np.asarray(jl) @ np.asarray(jr))
+
+
 def test_adaptive_mask_matches_jax(jsvd):
     import jax.numpy as jnp
 
