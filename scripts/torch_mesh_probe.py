@@ -14,12 +14,11 @@ split, lr 0.05, weight decay 1e-5):
    the first if the call only enqueues, ~2 ms more if it waits for the card;
 2. one flagship sweep in turns: ``sweep_once``, the data-parallel sweep, the
    data-parallel sweep with ``DataShards.sum`` summing nothing (the same
-   packing into one buffer, no collective), the data-parallel sweep with
-   ``DataShards.sum`` handing its inputs back (no packing, no collective),
-   and the data-parallel sweep with the profiler range of each step off;
-   each ``ROUNDS`` x 2 times, in the order a, b, c, d, e, e, d, c, b, a
-   repeated; the µs each adds a step against ``sweep_once``. The differences
-   name the shares: the collective (mesh against no collective), the packing
+   packing into one buffer, no collective) and the data-parallel sweep with
+   ``DataShards.sum`` handing its inputs back (no packing, no collective);
+   each ``ROUNDS`` x 2 times, in the order a, b, c, d, d, c, b, a repeated;
+   the µs each adds a step against ``sweep_once``. The differences name the
+   shares: the collective (mesh against no collective), the packing
    (no collective against no packing) and the rest of the mesh step (no
    packing against ``sweep_once``).
 
@@ -87,7 +86,6 @@ def sweeps(mesh) -> None:
     from tensornetworkforml_torch.ops.embedding import psi_embed
     from tensornetworkforml_torch.parallel import mesh as mesh_mod
     from tensornetworkforml_torch.parallel.dp import ShardedTrainer
-    from tensornetworkforml_torch.train import sweep as sweep_mod
     from tensornetworkforml_torch.train.sweep import SweepConfig, one_hot_labels, sweep_once
 
     gen = torch.Generator().manual_seed(0)
@@ -115,9 +113,6 @@ def sweeps(mesh) -> None:
         "mesh": (None, contextlib.nullcontext),
         "mesh, no collective": (None, patched_sum(no_sum)),
         "mesh, no packing": (None, patched_sum(no_pack)),
-        "mesh, no range": (None, lambda: mock.patch.object(
-            sweep_mod.torch.profiler, "record_function",
-            lambda name: contextlib.nullcontext())),
     }
     times = {k: [] for k in variants}
     order = (list(variants) + list(variants)[::-1]) * ROUNDS

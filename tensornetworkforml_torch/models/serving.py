@@ -22,6 +22,13 @@ from tensornetworkforml_torch.models.boundary import BoundaryMPS, boundary_forwa
 from tensornetworkforml_torch.models.mps import MPS, apply_act_fn, mps_forward, resolve_device
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels.env_scan import forward_scores
+from tensornetworkforml_torch.utils.profiling import (
+    SERVE_CHUNK,
+    SERVE_COPY_IN,
+    SERVE_COPY_OUT,
+    SERVE_REQUEST,
+    span,
+)
 
 
 class Predictor:
@@ -144,16 +151,20 @@ class Predictor:
 
     def scores(self, x_raw) -> np.ndarray:
         """Class scores ``(n, L)`` for raw pixels ``(n, N)`` (any n)."""
-        x = torch.as_tensor(x_raw, dtype=torch.float32)
-        x = x.reshape(len(x), -1).to(device=self.device, dtype=self.mps.dtype)
-        outs = []
-        for lo in range(0, len(x), self.batch_size):
-            chunk = x[lo : lo + self.batch_size]
-            n = len(chunk)
-            if n < self.batch_size:
-                chunk = F.pad(chunk, (0, 0, 0, self.batch_size - n))
-            outs.append(self._chunk_scores(chunk)[:, :n].T)
-        return torch.cat(outs).cpu().numpy()
+        with span(SERVE_REQUEST):
+            with span(SERVE_COPY_IN):
+                x = torch.as_tensor(x_raw, dtype=torch.float32)
+                x = x.reshape(len(x), -1).to(device=self.device, dtype=self.mps.dtype)
+            outs = []
+            for lo in range(0, len(x), self.batch_size):
+                with span(SERVE_CHUNK):
+                    chunk = x[lo : lo + self.batch_size]
+                    n = len(chunk)
+                    if n < self.batch_size:
+                        chunk = F.pad(chunk, (0, 0, 0, self.batch_size - n))
+                    outs.append(self._chunk_scores(chunk)[:, :n].T)
+            with span(SERVE_COPY_OUT):
+                return torch.cat(outs).cpu().numpy()
 
     def predict(self, x_raw) -> np.ndarray:
         """Predicted labels ``(n,)``."""

@@ -17,6 +17,7 @@ import torch
 from tensornetworkforml_torch.models.mps import MPS
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.train.sweep import SweepConfig, _scalar, _sweep, one_hot_labels
+from tensornetworkforml_torch.utils.profiling import EPOCH, span
 
 
 def fused_epoch(mps: MPS, x_epoch, y_epoch, lr: float, weight_dec: float,
@@ -35,41 +36,42 @@ def fused_epoch(mps: MPS, x_epoch, y_epoch, lr: float, weight_dec: float,
     0's, on the mesh's device, and every rank returns the same model,
     accuracies and metrics, those of the whole batches.
     """
-    if mesh is not None:
-        from tensornetworkforml_torch.parallel.dp import batch_accuracy, dp_sweep
-        from tensornetworkforml_torch.parallel.mesh import DataShards, replicate_params
+    with span(EPOCH):
+        if mesh is not None:
+            from tensornetworkforml_torch.parallel.dp import batch_accuracy, dp_sweep
+            from tensornetworkforml_torch.parallel.mesh import DataShards, replicate_params
 
-        dp = DataShards(mesh)
-        mps = replicate_params(mesh, mps)
-    if cfg is None:
-        cfg = SweepConfig(act_fn=mps.act_fn, loss_fn=mps.loss_fn)
-    if mps.l_pos != 0:
-        raise ValueError("fused_epoch expects the label leg at site 0")
-    if len(x_epoch) % 2 != 0:
-        raise ValueError("fused_epoch needs an even number of batches")
-    x = torch.as_tensor(x_epoch).to(dtype=mps.dtype, device=mps.device)
-    y = torch.as_tensor(y_epoch).to(device=mps.device)
-    lr, wd = _scalar(lr, mps), _scalar(weight_dec, mps)
-    ranks = [mps.M] * (mps.N - 1)
-    sites, label = mps.sites, mps.label_site
-    accs, acc_series, mae_series = [], [], []
-    for b in range(x.shape[0]):
-        if mesh is None:
-            sites, label, f0, _, metrics = _sweep(
-                sites, label, psi_embed(x[b]), one_hot_labels(y[b], mps.L, mps.dtype), lr, wd,
-                ranks, mps.T, cfg, left_dir=b % 2 == 1,
-            )
-            accs.append((f0.argmax(dim=0) == y[b]).to(mps.dtype).mean())
-        else:
-            xb, yb = dp.rows(x[b]), dp.rows(y[b])
-            sites, label, f0, _, metrics = dp_sweep(
-                sites, label, psi_embed(xb), one_hot_labels(yb, mps.L, mps.dtype), lr, wd, ranks,
-                mps.T, cfg, b % 2 == 1, dp)
-            accs.append(batch_accuracy(f0, yb, dp))
-        acc_series.append(metrics["accuracy"])
-        mae_series.append(metrics["MAE"])
-    return (
-        mps.replace(sites=sites, label_site=label),
-        torch.stack(accs),
-        {"accuracy": torch.stack(acc_series), "MAE": torch.stack(mae_series)},
-    )
+            dp = DataShards(mesh)
+            mps = replicate_params(mesh, mps)
+        if cfg is None:
+            cfg = SweepConfig(act_fn=mps.act_fn, loss_fn=mps.loss_fn)
+        if mps.l_pos != 0:
+            raise ValueError("fused_epoch expects the label leg at site 0")
+        if len(x_epoch) % 2 != 0:
+            raise ValueError("fused_epoch needs an even number of batches")
+        x = torch.as_tensor(x_epoch).to(dtype=mps.dtype, device=mps.device)
+        y = torch.as_tensor(y_epoch).to(device=mps.device)
+        lr, wd = _scalar(lr, mps), _scalar(weight_dec, mps)
+        ranks = [mps.M] * (mps.N - 1)
+        sites, label = mps.sites, mps.label_site
+        accs, acc_series, mae_series = [], [], []
+        for b in range(x.shape[0]):
+            if mesh is None:
+                sites, label, f0, _, metrics = _sweep(
+                    sites, label, psi_embed(x[b]), one_hot_labels(y[b], mps.L, mps.dtype), lr, wd,
+                    ranks, mps.T, cfg, left_dir=b % 2 == 1,
+                )
+                accs.append((f0.argmax(dim=0) == y[b]).to(mps.dtype).mean())
+            else:
+                xb, yb = dp.rows(x[b]), dp.rows(y[b])
+                sites, label, f0, _, metrics = dp_sweep(
+                    sites, label, psi_embed(xb), one_hot_labels(yb, mps.L, mps.dtype), lr, wd,
+                    ranks, mps.T, cfg, b % 2 == 1, dp)
+                accs.append(batch_accuracy(f0, yb, dp))
+            acc_series.append(metrics["accuracy"])
+            mae_series.append(metrics["MAE"])
+        return (
+            mps.replace(sites=sites, label_site=label),
+            torch.stack(accs),
+            {"accuracy": torch.stack(acc_series), "MAE": torch.stack(mae_series)},
+        )

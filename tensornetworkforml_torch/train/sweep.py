@@ -42,8 +42,14 @@ Data parallelism (``parallel/dp.py``): each rank sweeps its own rows of the
 batch, and ``dp`` (a ``parallel.mesh.DataShards``) turns the step's sums over
 the batch -- the gradient and the step metrics -- into ONE all-reduce over
 the mesh's ``data`` axis, and ``renorm_envs``' mean env norm into a second,
-scalar one after the split. Each step then runs inside a profiler range
-named ``utils.collectives.STEP_RANGE``.
+scalar one after the split.
+
+While a profiler records, each sweep is a ``utils.profiling.SWEEP`` range,
+its prologue (the stale environment stack and the batch output f0) a
+``SWEEP_PROLOGUE`` range inside it, and each step of the xla and hybrid
+engines a ``STEP`` range (``utils.collectives.STEP_RANGE``, by which
+``step_collectives`` groups a data-parallel sweep's collectives); the fused
+engine issues its steps from C, so it has the sweep and prologue ranges only.
 
 ``matmul_precision`` scopes the whole sweep, every engine, as the JAX
 package's ``default_matmul_precision`` does (``utils/precision.py``): on the
@@ -60,7 +66,6 @@ precision (``train/factored_step.py``).
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -85,14 +90,12 @@ from tensornetworkforml_torch.ops.kernels.step_kernel import (
     two_site_sweep,
 )
 from tensornetworkforml_torch.ops.svd import truncated_svd_split
-from tensornetworkforml_torch.utils.collectives import STEP_RANGE
 from tensornetworkforml_torch.utils.precision import matmul_precision
+from tensornetworkforml_torch.utils.profiling import STEP, SWEEP, SWEEP_PROLOGUE, span
 from tensornetworkforml_torch.train.factored_step import (
     factored_supported,
     two_site_update_factored,
 )
-
-_NO_RANGE = contextlib.nullcontext()
 
 
 class SweepConfig(NamedTuple):
@@ -370,28 +373,30 @@ def _hybrid_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec
 
     A_lefts, stats_rows = [], []
     for step in range(N - 1):
-        bnew, y0, g, f_new, left_part, stats = two_site_presplit(
-            lab, a2ms[step], x[step], x[step + 1], l_env, r32[step + 2], y1h, f, om,
-            lr32, wd32, act_fn=cfg.act_fn, loss_fn=cfg.loss_fn, T=T, with_gram=True,
-        )
-        qf = polar_iterate(y0, g, stats[0, 2].reshape(1, 1))
-        r = qf.T @ bnew  # R per label block: exactly the next carry layout
-        if cfg.growth_cap > 0:
-            cap = (1.0 + cfg.growth_cap) * stats[0, 0]
-            gamma = torch.where(stats[0, 3] > cap, cap / torch.clamp(stats[0, 3], min=1e-30), 1.0)
-            r = r * gamma
-            f_new = f_new * gamma
-        l_env_new = left_part @ qf
-        a_left = qf
-        if cfg.renorm_envs:
-            gn = 1.0 / torch.clamp(torch.linalg.vector_norm(l_env_new, dim=1).mean(), min=1e-30)
-            a_left = a_left * gn
-            l_env_new = l_env_new * gn
-            r = r / gn
-        lab = r.reshape(L, M * D, M)
-        l_env, f = l_env_new, f_new
-        A_lefts.append(a_left.reshape(M, D, M).to(dtype))
-        stats_rows.append(stats)
+        with span(STEP):
+            bnew, y0, g, f_new, left_part, stats = two_site_presplit(
+                lab, a2ms[step], x[step], x[step + 1], l_env, r32[step + 2], y1h, f, om,
+                lr32, wd32, act_fn=cfg.act_fn, loss_fn=cfg.loss_fn, T=T, with_gram=True,
+            )
+            qf = polar_iterate(y0, g, stats[0, 2].reshape(1, 1))
+            r = qf.T @ bnew  # R per label block: exactly the next carry layout
+            if cfg.growth_cap > 0:
+                cap = (1.0 + cfg.growth_cap) * stats[0, 0]
+                gamma = torch.where(stats[0, 3] > cap,
+                                    cap / torch.clamp(stats[0, 3], min=1e-30), 1.0)
+                r = r * gamma
+                f_new = f_new * gamma
+            l_env_new = left_part @ qf
+            a_left = qf
+            if cfg.renorm_envs:
+                gn = 1.0 / torch.clamp(torch.linalg.vector_norm(l_env_new, dim=1).mean(), min=1e-30)
+                a_left = a_left * gn
+                l_env_new = l_env_new * gn
+                r = r / gn
+            lab = r.reshape(L, M * D, M)
+            l_env, f = l_env_new, f_new
+            A_lefts.append(a_left.reshape(M, D, M).to(dtype))
+            stats_rows.append(stats)
 
     stats = torch.cat(stats_rows).to(dtype)  # (N-1, 8)
     zeros = torch.zeros((N - 1,), dtype=dtype, device=dev)
@@ -459,9 +464,10 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
     e0 = boundary_vector(M, dtype=dtype, device=dev)
 
     # per-batch precomputation: stale suffix environments (index 0 unused)
-    phi_t = phi.transpose(0, 1).contiguous()  # (N, B, D)
-    r_envs = right_env_stack_fused(sites, phi_t, e0)  # (N+1, B, M)
-    f0 = chain_scores(e0.expand(B, M), label_site, phi[:, 0, :], r_envs[1])
+    with span(SWEEP_PROLOGUE):
+        phi_t = phi.transpose(0, 1).contiguous()  # (N, B, D)
+        r_envs = right_env_stack_fused(sites, phi_t, e0)  # (N+1, B, M)
+        f0 = chain_scores(e0.expand(B, M), label_site, phi[:, 0, :], r_envs[1])
 
     if cfg.engine in ("hybrid", "fused"):
         engine_sweep = _hybrid_sweep if cfg.engine == "hybrid" else _fused_sweep
@@ -474,7 +480,7 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
         label, l_env, E2, f = label_site, e0.expand(B, M), torch.outer(e0, e0), f0
         lefts, steps = [], []
         for step in range(N - 1):
-            with torch.profiler.record_function(STEP_RANGE) if dp is not None else _NO_RANGE:
+            with span(STEP):
                 A_left, label, l_env, E2, f, metr = two_site_update(
                     label, sites[step + 1], phi_t[step], phi_t[step + 1], l_env,
                     r_envs[step + 2], E2, no_r2 if r2 is None else r2[step + 2],
@@ -497,7 +503,7 @@ def _sweep(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg, left
     inside the scope of ``cfg.matmul_precision`` (one entry a sweep: every
     caller, ``sweep_once``, ``fused_epoch`` and ``parallel/dp.py``, sweeps
     through here)."""
-    with matmul_precision(cfg.matmul_precision):
+    with span(SWEEP), matmul_precision(cfg.matmul_precision):
         return _sweep_in_scope(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg,
                                left_dir, dp)
 

@@ -10,7 +10,12 @@ notebooks (SURVEY.md section 5); this module is the same as a library:
   a full sweep, the environment stack and the SVD split -- for any model
   configuration;
 * ``device_trace``: a context manager around ``torch.profiler`` that writes a
-  Chrome / Perfetto trace of the host and, on the card, the device timeline.
+  Chrome / Perfetto trace of the host and, on the card, the device timeline;
+* ``span``: the port's own ranges in that trace, at the layer boundaries of
+  serving and training (the names below), on the profiler's clock beside the
+  CUDA runtime calls and the card's kernels and copies. They are recorded
+  exactly while a profiler records; otherwise ``span`` returns a shared
+  no-op context and costs one flag read.
 """
 
 from __future__ import annotations
@@ -23,6 +28,35 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from tensornetworkforml_torch.utils.collectives import STEP_RANGE
+
+# The spans (``record_function`` ranges), outermost first. Serving:
+SERVE_REQUEST = "tnml::serve.request"  # ``Predictor.scores``, the whole call
+SERVE_COPY_IN = "tnml::serve.copy_in"  # numpy to tensor and the copy to the device
+SERVE_CHUNK = "tnml::serve.chunk"  # one chunk: padding, embedding, K3, the label closure
+SERVE_COPY_OUT = "tnml::serve.copy_out"  # waiting for the card, the copy back
+# Training:
+EPOCH = "tnml::epoch"  # ``fused_epoch``
+SWEEP = "tnml::sweep"  # one sweep, every engine and caller
+SWEEP_PROLOGUE = "tnml::sweep.prologue"  # the stale environment stack and f0
+STEP = STEP_RANGE  # one two-site step (the xla and hybrid engines)
+
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a profiler is recording now (false in a scheduled profiler's
+    wait and warm-up phases, true in its active phase)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records; otherwise a shared ``contextlib.nullcontext()``, so the
+    range is never entered and costs nothing measurable."""
+    return torch.profiler.record_function(name) if recording() else _OFF
 
 
 def _devices(tree, out: set) -> set:
