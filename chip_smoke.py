@@ -30,7 +30,9 @@ phase trains the same model at M=512. Phases:
                 three;
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 K3 (chain) at the serving shapes (the form that ran named at
-                each: latency or throughput), K2 (pre-split step) and K1
+                each: latency or throughput), K3's stack form (the sweep's
+                prologue) on the flagship's sites and at M=256 at B=256, each
+                slot against its own max, K2 (pre-split step) and K1
                 (polar iteration) on the inputs of a mid-chain step of the
                 flagship training batch, and each at a ragged shape;
   4. serve   -- the model saved to .npz and served by
@@ -706,6 +708,38 @@ def compare_chain(name: str, sites: torch.Tensor, x: torch.Tensor) -> float:
     return err32
 
 
+def compare_stack(name: str, sites: torch.Tensor, phi_t: torch.Tensor) -> float:
+    """K3's stack form vs its plain version in f32 and f64 on the card, each
+    slot against its own max|ref| (the slots' scales differ along the chain);
+    returns the f32 error."""
+    got = env_scan.right_env_stack_chain(sites, phi_t)
+    torch.cuda.synchronize()
+    ref32 = env_scan.right_env_stack_reference(sites, phi_t)
+    ref64 = env_scan.right_env_stack_reference(sites.double(), phi_t.double())
+    if got.shape != ref32.shape or not torch.isfinite(got).all():
+        fail(f"{name}: stack output {tuple(got.shape)} not finite or wrong shape")
+    scale = ref64.abs().flatten(1).amax(1).clamp_min(1e-30)
+    err32 = float(((got - ref32).abs().flatten(1).amax(1).double() / scale).max())
+    err64 = float(((got.double() - ref64).abs().flatten(1).amax(1) / scale).max())
+    ok = max(err32, err64) <= TOL
+    print(f"[kernel] right_env_stack_chain {name} ({chain_form(sites.shape[1], phi_t.shape[1])}):"
+          f" worst slot err_vs_f32={err32:.3g} err_vs_f64={err64:.3g} of the slot's max|ref|, "
+          f"tol {TOL:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: the stack form disagrees with its plain version")
+    return float((got - ref32).abs().max())
+
+
+def stack_inputs(mps, x: torch.Tensor) -> dict:
+    """The sweep prologue's inputs at the flagship (the model's whole site
+    stack and the embedded batch) and at M_WIDE (random sites, the same
+    batch)."""
+    phi = psi_embed(x).transpose(0, 1).contiguous()
+    gen = torch.Generator().manual_seed(SEED + 7)
+    wide = torch.randn((N, M_WIDE, D, M_WIDE), generator=gen) / np.sqrt(M_WIDE)
+    return {M: (mps.sites, phi), M_WIDE: (wide.to(DEVICE), phi)}
+
+
 class _Captured(Exception):
     pass
 
@@ -801,6 +835,11 @@ def phase_kernel(mps, x_big: torch.Tensor, captured: dict) -> dict:
     xs = torch.rand((b, n), generator=gen)
     ragged = compare_chain(f"ragged M={m} n={n} B={b}", small.to(DEVICE), xs.to(DEVICE))
     errs[("right_env_chain", BATCH)] = max(errs[("right_env_chain", BATCH)], ragged)
+    e = [compare_stack(f"N={N} M={m_} B={BATCH}", *inputs)
+         for m_, inputs in stack_inputs(mps, x_big[:BATCH]).items()]
+    e.append(compare_stack(f"ragged M={m} n={n} B={b}", small.to(DEVICE),
+                           psi_embed(xs).transpose(0, 1).contiguous().to(DEVICE)))
+    errs["right_env_stack_chain"] = max(e)
 
     args, kwargs = captured["k2"]
     e = [compare_presplit(f"flagship step {CAPTURE_STEP}", args, kwargs)]
@@ -830,6 +869,7 @@ def phase_kernel(mps, x_big: torch.Tensor, captured: dict) -> dict:
 
 WRAPPERS = {
     "right_env_chain": env_scan.right_env_chain,
+    "right_env_stack_chain": env_scan.right_env_stack_chain,
     "polar_iterate": polar_split.polar_iterate,
     "two_site_presplit": presplit_kernel.two_site_presplit,
     "gramfree_sketch": polar_split.gramfree_sketch,
@@ -905,7 +945,9 @@ def plain_versions():
             mock.patch.object(sweep_mod, "polar_iterate", polar_split.polar_iterate_reference),
             mock.patch.object(sweep_mod, "two_site_presplit",
                               presplit_kernel.two_site_presplit_reference),
-            mock.patch.object(sweep_mod, "two_site_sweep", step_kernel.two_site_sweep_reference))
+            mock.patch.object(sweep_mod, "two_site_sweep", step_kernel.two_site_sweep_reference),
+            mock.patch.object(sweep_mod, "right_env_stack_chain",
+                              env_scan.right_env_stack_reference))
 
 
 def one_sweep(mps, x, y, engine, plain=False, precision="default"):
@@ -913,8 +955,8 @@ def one_sweep(mps, x, y, engine, plain=False, precision="default"):
     args = (mps, psi_embed(x), one_hot_labels(y, L, torch.float32), LR, WD, cfg)
     if not plain:
         return sweep_once(*args)
-    p1, p2, p3, p4 = plain_versions()
-    with p1, p2, p3, p4:
+    p1, p2, p3, p4, p5 = plain_versions()
+    with p1, p2, p3, p4, p5:
         return sweep_once(*args)
 
 
@@ -993,14 +1035,17 @@ def phase_hybrid(mps0, x_tr, y_tr, x_fresh) -> dict:
     seconds = time.perf_counter() - t0
     launched = counts()
     want = HYBRID_BATCHES * STEPS
-    if launched["two_site_presplit"] != want or launched["polar_iterate"] != want:
+    if (launched["two_site_presplit"] != want or launched["polar_iterate"] != want
+            or launched["right_env_stack_chain"] != HYBRID_BATCHES):
         fail(f"the hybrid epoch launched K2 {launched['two_site_presplit']} and K1 "
-             f"{launched['polar_iterate']} times (want {want} each)")
+             f"{launched['polar_iterate']} times (want {want} each) and K3's stack form "
+             f"{launched['right_env_stack_chain']} (want {HYBRID_BATCHES}, one a sweep)")
     if not (torch.isfinite(mps.sites).all() and torch.isfinite(mps.label_site).all()):
         fail("the hybrid epoch left a non-finite model")
     print(f"[hybrid] fused_epoch engine=hybrid, {HYBRID_BATCHES} batches: {seconds:.2f} s; "
           f"K2 launches {launched['two_site_presplit']}, K1 launches "
-          f"{launched['polar_iterate']} = {HYBRID_BATCHES} x {STEPS} each; batch accs "
+          f"{launched['polar_iterate']} = {HYBRID_BATCHES} x {STEPS} each, K3's stack form "
+          f"{launched['right_env_stack_chain']}; batch accs "
           f"{[round(float(a), 4) for a in accs]}")
     hold_sweeps("hybrid", one_sweep(mps0, xe[0], ye[0], "hybrid"),
                 one_sweep(mps0, xe[0], ye[0], "xla"), x_fresh)
@@ -1099,12 +1144,15 @@ def phase_hybrid_wide(requests, xb, yb, x_fresh):
     hyb = one_sweep(wide, xb, yb, "hybrid")
     torch.cuda.synchronize()
     launched = counts()
-    if launched["two_site_presplit"] != STEPS or launched["polar_iterate"] != STEPS:
+    if (launched["two_site_presplit"] != STEPS or launched["polar_iterate"] != STEPS
+            or launched["right_env_stack_chain"] != 1):
         fail(f"the M={M_WIDE} hybrid sweep launched K2 {launched['two_site_presplit']} and K1 "
-             f"{launched['polar_iterate']} times (want {STEPS} each)")
+             f"{launched['polar_iterate']} times (want {STEPS} each) and K3's stack form "
+             f"{launched['right_env_stack_chain']} (want 1)")
     print(f"[hybrid M={M_WIDE}] sweep engine=hybrid at M*D = {M_WIDE * D} (the JAX package "
           f"caps it at 256): K2 launches {launched['two_site_presplit']}, K1 launches "
-          f"{launched['polar_iterate']} ({k1_form(*y0.shape)})")
+          f"{launched['polar_iterate']} ({k1_form(*y0.shape)}), K3's stack form "
+          f"{launched['right_env_stack_chain']}")
     xla = one_sweep(wide, xb, yb, "xla")
     ref = float64_sweep(wide, xb, yb)
     hold_sweeps(f"hybrid M={M_WIDE} vs float64", hyb, ref, x_fresh)
@@ -1132,8 +1180,8 @@ def phase_hybrid_wide(requests, xb, yb, x_fresh):
     def rescaled(m):
         return m.replace(label_site=m.label_site * (1 + RF_PERTURB))
 
-    p1, p2, p3, p4 = plain_versions()
-    with p1, p2, p3, p4:
+    p1, p2, p3, p4, p5 = plain_versions()
+    with p1, p2, p3, p4, p5:
         plain_rescaled = one_sweep(rescaled(wide), xb, yb, "hybrid")
         xla_plain = one_sweep(wide, xb, yb, "xla")
         with mock.patch.object(sweep_mod, "polar_iterate", k1_in_float64):
@@ -1285,13 +1333,16 @@ def phase_fused(mps0, x_tr, y_tr, x_fresh) -> dict:
     seconds = time.perf_counter() - t0
     launched = counts()
     want = FUSED_BATCHES * STEPS
-    if launched["two_site_step"] != want or any(
-            v for k, v in launched.items() if k != "two_site_step"):
-        fail(f"the fused epoch launched {launched} (want K7 {want} times, nothing else)")
+    if (launched["two_site_step"] != want or launched["right_env_stack_chain"] != FUSED_BATCHES
+            or any(v for k, v in launched.items()
+                   if k not in ("two_site_step", "right_env_stack_chain"))):
+        fail(f"the fused epoch launched {launched} (want K7 {want} times and K3's stack form "
+             f"{FUSED_BATCHES}, one a sweep, nothing else)")
     if not (torch.isfinite(mps.sites).all() and torch.isfinite(mps.label_site).all()):
         fail("the fused epoch left a non-finite model")
     print(f"[fused] fused_epoch engine=fused, {FUSED_BATCHES} batches: {seconds:.2f} s; K7 "
-          f"launches {launched['two_site_step']} = {FUSED_BATCHES} x {STEPS}, K1 and K2 "
+          f"launches {launched['two_site_step']} = {FUSED_BATCHES} x {STEPS}, K3's stack form "
+          f"{launched['right_env_stack_chain']}, K1 and K2 "
           f"{launched['polar_iterate']} and {launched['two_site_presplit']}; batch accs "
           f"{[round(float(a), 4) for a in accs]}")
     seen = {}
@@ -1569,10 +1620,11 @@ def phase_rangefinder_train(mps0):
     seconds = time.perf_counter() - t0
     launched = counts()
     want = RF_BATCHES * STEPS
-    if launched["rangefinder_split"] != want or any(
-            v for k, v in launched.items() if k != "rangefinder_split"):
-        fail(f"the rangefinder train_model launched {launched} (want K6 {want} times, "
-             "nothing else)")
+    if (launched["rangefinder_split"] != want or launched["right_env_stack_chain"] != RF_BATCHES
+            or any(v for k, v in launched.items()
+                   if k not in ("rangefinder_split", "right_env_stack_chain"))):
+        fail(f"the rangefinder train_model launched {launched} (want K6 {want} times and K3's "
+             f"stack form {RF_BATCHES}, one a sweep, nothing else)")
     if mps.device.type != "cuda" or not (torch.isfinite(mps.sites).all()
                                          and torch.isfinite(mps.label_site).all()):
         fail("the rangefinder train_model left a non-finite model or one off the card")
@@ -1903,9 +1955,11 @@ def phase_teacher() -> dict:
     print(f"[teacher] student N={N} M={M} L={L} polar, canonical, lr {TEACHER_LR}, "
           f"{TEACHER_BATCHES} batches of {BATCH} on the card's task: {seconds:.2f} s "
           f"({seconds / TEACHER_BATCHES * 1e3:.1f} ms/batch, validation included); K1 "
-          f"launches {launched['polar_iterate']} (want {want}); test accuracy {test_acc:.4f} "
-          f"(need > {TEACHER_MIN_ACC}; chance {1 / L:g})")
-    if launched["polar_iterate"] != want or sum(launched.values()) != want:
+          f"launches {launched['polar_iterate']} (want {want}), K3's stack form "
+          f"{launched['right_env_stack_chain']} (want {TEACHER_BATCHES}, one a sweep); test "
+          f"accuracy {test_acc:.4f} (need > {TEACHER_MIN_ACC}; chance {1 / L:g})")
+    if (launched["polar_iterate"] != want or launched["right_env_stack_chain"] != TEACHER_BATCHES
+            or sum(launched.values()) != want + TEACHER_BATCHES):
         fail(f"the student's training launched {launched}")
     if student.device.type != "cuda" or not (torch.isfinite(student.sites).all()
                                              and torch.isfinite(student.label_site).all()):
@@ -2304,6 +2358,12 @@ def k8_bound_ms(I, J, q, pe) -> tuple[float, str]:
 
 def chain_work(n, m, b):
     return 4.0 * n * b * m * m, 4.0 * (n * m * 2 * m + b * n + b * m)
+
+
+def stack_work(n, m, b):
+    """K3's stack form: the chain's FLOPs; the site stack and the embedded
+    inputs read once, the env stack (n + 1 slots) written once."""
+    return 4.0 * n * b * m * m, 4.0 * (n * m * 2 * m + n * b * 2 + (n + 1) * b * m)
 
 
 def polar_work(I, q, n_loop, n_final, n_power=1):
@@ -2730,6 +2790,11 @@ def phase_timing(mps, requests, x_big, captured, x_tr, y_tr) -> dict:
             lambda: env_scan.right_env_chain_reference(sites, x))
         if other is not None:
             ms[("parent", B)] = other_turns(other, sites, x, B)
+    for m_, (st, phi) in stack_inputs(mps, x_big[:BATCH]).items():
+        ms[("right_env_stack_chain", m_)] = turns(
+            f"right_env_stack_chain N={N} M={m_} B={BATCH} ({chain_form(m_, BATCH)})",
+            lambda: env_scan.right_env_stack_chain(st, phi),
+            lambda: env_scan.right_env_stack_reference(st, phi), plain_reps=5)
     args, kwargs = captured["k2"]
     ms["two_site_presplit"] = turns(
         f"two_site_presplit L={L} I={M * D} DM={D * M} B={BATCH} q={M}",
@@ -3308,7 +3373,8 @@ def phase_mesh_cli() -> dict:
         launched = counts()
         saved = os.path.exists(os.path.join(tmp, "dp.npz"))
     ok = (launched["polar_iterate"] == seen["steps"] * STEPS and seen["steps"] > 0
-          and sum(launched.values()) == launched["polar_iterate"]
+          and launched["right_env_stack_chain"] == seen["steps"]
+          and sum(launched.values()) == launched["polar_iterate"] + seen["steps"]
           and seen["device"].type == "cuda" and saved and not dist.is_initialized())
     ms_batch = seen["seconds"] / max(seen["steps"], 1) * 1e3
     print(f"[mesh] training_mnist {' '.join(argv[:-2])} on the default device "
@@ -3316,7 +3382,8 @@ def phase_mesh_cli() -> dict:
           f"{ms_batch:.1f} ms a batch ({seconds:.2f} s for the whole command, data, validation "
           f"and test included), val acc {val_acc[-1]:.4f}, test acc "
           f"{test_acc:.4f}; K1 launches {launched['polar_iterate']} = {seen['steps']} x {STEPS}, "
-          f"no other kernel; model saved; the CLI's world closed {not dist.is_initialized()} "
+          f"K3's stack form {launched['right_env_stack_chain']} (one a step), no other kernel; "
+          f"model saved; the CLI's world closed {not dist.is_initialized()} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"training_mnist --dp launched {launched} over {seen['steps']} steps")
@@ -3437,11 +3504,13 @@ def phase_mesh(mps0, x_tr, y_tr, x_fresh, requests) -> dict:
                 fresh_gap(got, ref, x_fresh))
         bits = torch.equal(got.sites, ref.sites) and torch.equal(got.label_site, ref.label_site)
         ok = (launched["polar_iterate"] == MESH_BATCHES * STEPS
-              and sum(launched.values()) == launched["polar_iterate"]
+              and launched["right_env_stack_chain"] == MESH_BATCHES
+              and sum(launched.values()) == launched["polar_iterate"] + MESH_BATCHES
               and max(gaps) <= MESH_TOL and got.device.type == "cuda")
         print(f"[mesh] ShardedTrainer (polar, {MESH_BATCHES} sweeps of {BATCH}): {dp_ms:.1f} ms a "
               f"sweep, batch acc {accs}; K1 launches {launched['polar_iterate']} = {MESH_BATCHES} "
-              f"x {STEPS}, no other kernel; against sweep_once on the same batches: sites "
+              f"x {STEPS}, K3's stack form {launched['right_env_stack_chain']} (one a sweep), no "
+              f"other kernel; against sweep_once on the same batches: sites "
               f"{gaps[0]:.3g}, label core {gaps[1]:.3g}, fresh scores {gaps[2]:.3g} of max (tol "
               f"{MESH_TOL:g}); bit for bit: {bits} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -3505,10 +3574,12 @@ def phase_mesh(mps0, x_tr, y_tr, x_fresh, requests) -> dict:
         dist_ms = (time.perf_counter() - t0) * 1e3
         launched = counts()
         ok = (launched["polar_sketch_gram"] == STEPS and launched["polar_iterate"] == STEPS
-              and sum(launched.values()) == 2 * STEPS and captured["calls"] == STEPS)
+              and launched["right_env_stack_chain"] == 1
+              and sum(launched.values()) == 2 * STEPS + 1 and captured["calls"] == STEPS)
         print(f"[mesh] ShardedTrainer(dist_split='polar'), one sweep of {BATCH}: {dist_ms:.1f} ms; "
               f"K5 launches {launched['polar_sketch_gram']}, K1 {launched['polar_iterate']} "
-              f"(want {STEPS} each), no other kernel {'ok' if ok else 'FAIL'}")
+              f"(want {STEPS} each), K3's stack form {launched['right_env_stack_chain']} (want 1), "
+              f"no other kernel {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"the dist-polar sweep launched {launched}")
         out["dist_launches"], out["dist_ms"] = launched["polar_sketch_gram"], dist_ms
@@ -3943,6 +4014,8 @@ def precision_sweeps(mps, xb, yb, x_fresh, y_fresh, ref) -> dict:
     want = {"xla": {"polar_iterate": STEPS}, "hybrid": {"polar_iterate": STEPS,
                                                        "two_site_presplit": STEPS},
             "fused": {"two_site_step": STEPS}}
+    for kernels in want.values():
+        kernels["right_env_stack_chain"] = 1  # the prologue, full float32 in every scope
     out = {}
     for engine, kernels in want.items():
         runs, launched, ms = {}, {}, {"ieee": [], "tf32": []}
@@ -3992,7 +4065,8 @@ def precision_factored(big, xb, yb, x_fresh, y_fresh) -> None:
     """One M=512 sweep through the factored route under PRECISION, held by
     quality against the IEEE factored sweep (QUALITY_F_TOL, QUALITY_ACC_TOL);
     its iteration runs in train/factored_step.py's _ITERATE_MODES (IEEE), read
-    by a spy inside its Newton-Schulz passes; no kernel launches."""
+    by a spy inside its Newton-Schulz passes; no kernel launches but the
+    prologue's (K3's stack form, once)."""
     from tensornetworkforml_torch.train import factored_step as fs_mod
 
     seen = []
@@ -4021,13 +4095,15 @@ def precision_factored(big, xb, yb, x_fresh, y_fresh) -> None:
                                                                             y_fresh)
     modes = sorted(set(seen))
     ok = (max(batch, fresh) <= QUALITY_F_TOL and abs(acc_r - acc_i) <= QUALITY_ACC_TOL
-          and sum(launched.values()) == 0 and modes == sorted(set(want_tf32)))
+          and launched["right_env_stack_chain"] == 1 and sum(launched.values()) == 1
+          and modes == sorted(set(want_tf32)))
     print(f"[precision] M={M_LARGE} factored sweep under {PRECISION!r} ({ms:.1f} ms): f_final "
           f"{batch:.3g}, fresh scores {fresh:.3g} of max|f| from the IEEE factored sweep (tol "
           f"{QUALITY_F_TOL:g}); fresh accuracy {acc_r:.4f} vs {acc_i:.4f} (tol "
           f"{QUALITY_ACC_TOL:g}); the iteration's {len(seen)} Newton-Schulz calls ran with "
           f"the TF32 switch {modes} (_ITERATE_MODES {fs_mod._ITERATE_MODES}); kernel launches "
-          f"{sum(launched.values())} {'ok' if ok else 'FAIL'}")
+          f"{sum(launched.values())}, K3's stack form {launched['right_env_stack_chain']} (want "
+          f"1, the prologue) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"the {PRECISION} M={M_LARGE} factored sweep failed its hold")
 
@@ -4213,11 +4289,13 @@ def main() -> None:
     prof = phase_profiling(mps, requests)
     launches["polar_iterate"], train_batch_s = phase_train(mps, x_tr, y_tr, x_val, y_val,
                                                            x_fresh)
-    launches["two_site_presplit"] = phase_hybrid(mps, x_tr, y_tr, x_fresh)["two_site_presplit"]
+    hybrid = phase_hybrid(mps, x_tr, y_tr, x_fresh)
+    launches["two_site_presplit"] = hybrid["two_site_presplit"]
+    launches[("right_env_stack_chain", M)] = hybrid["right_env_stack_chain"]
     xb = torch.as_tensor(x_tr[:BATCH], device=DEVICE)
     yb = torch.as_tensor(y_tr[:BATCH], device=DEVICE)
     wide, wide_errs, wide_cap, wide_launched = phase_hybrid_wide(requests, xb, yb, x_fresh)
-    for name in ("two_site_presplit", "polar_iterate"):
+    for name in ("two_site_presplit", "polar_iterate", "right_env_stack_chain"):
         launches[(name, M_WIDE)] = wide_launched[name]
     errs[("two_site_presplit", M_WIDE)] = wide_errs["two_site_presplit"]
     errs[("polar_iterate", M_WIDE)] = wide_errs[("polar_iterate", M_WIDE)]
@@ -4280,6 +4358,8 @@ def main() -> None:
     work = {
         ("right_env_chain", BATCH): chain_work(N - 1, M, BATCH),
         ("right_env_chain", BIG): chain_work(N - 1, M, BIG),
+        ("right_env_stack_chain", M): stack_work(N, M, BATCH),
+        ("right_env_stack_chain", M_WIDE): stack_work(N, M_WIDE, BATCH),
         "polar_iterate": polar_work(M * D, M, *pe),
         "two_site_presplit": presplit_work(L, M * D, M, D * M, BATCH, M),
         "gramfree_sketch": sketch_work(I_big, J_big, M_LARGE, False),
@@ -4345,6 +4425,10 @@ def main() -> None:
          ("right_env_chain", BIG)),
         ("right_env_chain", "env_scan.cu", "tensornetworkforml_tpu/ops/kernels/env_scan.py:29",
          ens_key),
+        ("right_env_stack_chain", "env_scan.cu", "none (an XLA scan in the JAX package's sweep)",
+         ("right_env_stack_chain", M)),
+        ("right_env_stack_chain", "env_scan.cu", "none (an XLA scan in the JAX package's sweep)",
+         ("right_env_stack_chain", M_WIDE)),
         ("polar_iterate", "polar_iterate.cu",
          "tensornetworkforml_tpu/ops/kernels/polar_split.py:566", "polar_iterate"),
         ("polar_iterate", "polar_iterate.cu",
@@ -4402,6 +4486,9 @@ def main() -> None:
                 row["launches_mesh"] = mesh["serve_launches"]
             if m_chain == M:  # Predictor.from_checkpoint of the flagship's .dat
                 row["launches_dat"] = ref["launches"][key[1]]
+        elif name == "right_env_stack_chain":  # the sweep's prologue, one launch a sweep
+            row["shape"] = f"n={N} M={key[1]} B={BATCH}"
+            row["form"] = chain_form(key[1], BATCH)
         elif ("parent", key) in ms:  # the other build's, timed in turns
             row["parent_ms"] = ms[("parent", key)]
         if name == "two_site_step":  # at M=256 B=64 (K1 at I = 512 inside)

@@ -16,6 +16,13 @@ CUDA card; run from the root of the repository:
         the throughput switch and M=512; with --other-csrc, beside the error
         of env_scan.cu built from another csrc directory (e.g. the parent
         commit's, from `git archive HEAD tensornetworkforml_torch/csrc`)
+    python3 scripts/torch_k3_probe.py stack
+        the stack form (right_env_stack_chain, the training sweep's prologue)
+        on the flagship's and M=256's near-identity models at B=256 (both
+        directions: the chain and its mirror), on random chains at both bonds
+        and at ragged shapes of both forms: each slot's error against the
+        float64 einsum stack, the repeat's bits, the plan, and its time in
+        turns with the einsum loop it replaces (CUDA events) and by launch
     python3 scripts/torch_k3_probe.py time --other-csrc DIR
         this K3 and the other build's at B=256 and B=8192: the call time by
         CUDA events in turns (other, this, this, other) and the device time
@@ -45,7 +52,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from tensornetworkforml_torch.ops.embedding import psi_embed  # noqa: E402
 from tensornetworkforml_torch.ops.kernels import _build, env_scan  # noqa: E402
+from tensornetworkforml_torch.train.sweep import (  # noqa: E402
+    _mirror_sites,
+    one_hot_labels,
+    sweep_once,
+)
 
 REPS = 20
 # the instantiated forms: (form, C, BT)
@@ -144,8 +157,65 @@ def bits(other) -> None:
         line = (f"[bits] {what} ({env_scan.kernel_plan(sites.shape[1], xs.shape[0])['form']}): "
                 f"repeat {'identical' if same else 'DIFFERS'}, err {error(first, sites, xs):.3g}")
         if other is not None:
-            line += f", the other build's err {error(call(other, sites, xs), sites, xs):.3g}"
+            theirs = call(other, sites, xs)
+            line += (f", the other build's err {error(theirs, sites, xs):.3g}, its bits "
+                     + ("identical" if torch.equal(first.view(torch.int32),
+                                                   theirs.view(torch.int32)) else "DIFFER"))
         print(line + " of max|v| against float64")
+
+
+def stack(other) -> None:
+    requests, labels = cs.pooled(cs.BATCH, seed=cs.SEED)
+    x, y = torch.as_tensor(requests, device="cuda"), torch.as_tensor(labels, device="cuda")
+    phi_t = psi_embed(x).transpose(0, 1).contiguous()
+    cases = []
+    for M in (cs.M, 256):
+        mps = cs.product_init(torch.Generator().manual_seed(cs.SEED), N=cs.N, M=M, D=cs.D,
+                              L=cs.L, act_fn="linear", loss_fn="MSE",
+                              calibration_x=requests[:512])
+        cases.append((f"M={M} product_init B={cs.BATCH}", mps.sites, phi_t))
+        swept = sweep_once(mps, psi_embed(x), one_hot_labels(y, cs.L, torch.float32), cs.LR,
+                           cs.WD, cs.flagship_cfg("hybrid"))[0]  # the label now at the end
+        cases.append((f"M={M} after a right sweep, mirrored B={cs.BATCH}",
+                      _mirror_sites(swept.sites).contiguous(), phi_t.flip(0).contiguous()))
+        gen = torch.Generator().manual_seed(M)
+        rand = (torch.randn((cs.N, M, 2, M), generator=gen) / M ** 0.5).to("cuda")
+        cases.append((f"M={M} random B={cs.BATCH}", rand, phi_t))
+    for n, M, B in ((5, 37, 9), (17, 40, 4201), (cs.N, cs.M, cs.BIG)):
+        gen = torch.Generator().manual_seed(n)
+        rs = (torch.randn((n, M, 2, M), generator=gen) / M ** 0.5).to("cuda")
+        rx = torch.rand((B, n), generator=gen).to("cuda")
+        cases.append((f"n={n} M={M} B={B} random", rs, psi_embed(rx).transpose(0, 1).contiguous()))
+    for what, sites, ph in cases:
+        n, M, B = sites.shape[0], sites.shape[1], ph.shape[1]
+        first = env_scan.right_env_stack_chain(sites, ph)
+        second = env_scan.right_env_stack_chain(sites, ph)
+        want = env_scan.right_env_stack_reference(sites.double(), ph.double())
+        err = ((first.double() - want).abs().flatten(1).amax(1)
+               / want.abs().flatten(1).amax(1).clamp_min(1e-300))
+        same = torch.equal(first.view(torch.int32), second.view(torch.int32))
+        plan = env_scan.kernel_plan(M, B)
+        line = (f"[stack] {what} ({plan['form']} C={plan['C']}): worst slot err "
+                f"{float(err.max()):.3g}"
+                f" of its max|v| against float64 (slot {int(err.argmax())}), repeat "
+                f"{'identical' if same else 'DIFFERS'}")
+        if n == cs.N and B <= cs.BIG:
+            kern = lambda: env_scan.right_env_stack_chain(sites, ph)  # noqa: E731
+            plain = lambda: env_scan.right_env_stack_reference(sites, ph)  # noqa: E731
+            p1, k1 = cs.cuda_ms(plain, 5), cs.cuda_ms(kern, REPS)
+            k2, p2 = cs.cuda_ms(kern, REPS), cs.cuda_ms(plain, 5)
+            dev = sum(by_launch(kern).values())
+            line += (f"; kernel {k1 * 1e3:.1f} / {k2 * 1e3:.1f} us a call, device {dev:.1f} us; "
+                     f"the einsum loop {p1 * 1e3:.1f} / {p2 * 1e3:.1f} us (CUDA events, in turns)")
+        print(line)
+
+
+def other_chain_lib(csrc: str) -> ctypes.CDLL:
+    """env_scan.cu from another csrc directory, built and bound like this one."""
+    tmp = tempfile.mkdtemp()
+    shutil.copytree(csrc, os.path.join(tmp, "csrc"))
+    cs.OTHER_CSRC = csrc
+    return cs.bind_other("env_scan", cs.build_other("env_scan", tmp))
 
 
 def by_launch(fn) -> dict:
@@ -181,8 +251,9 @@ _LOCAL = [('asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memor
           ('asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");', ";"),
           ("        for (int q = 0; q < C; ++q) *cl.map_shared_rank(dst, q) = out;",
            "        *dst = out;")]
-_NO_PRODUCTS = [("        if (c == NC - 1) F::epilogue(", "        if (0) F::epilogue(")]
-_NO_PIXELS = [("            xr = x_at(a, b0 + threadIdx.x, a.n - 3 - t);", "")]
+_EPILOGUE = "F::epilogue(acc, sc + (t % 3) * 2 * BT, vnext, r0 + p * RP, r1, L.Mv);"
+_NO_PRODUCTS = [("            " + _EPILOGUE, "            if (0) " + _EPILOGUE)]
+_NO_PIXELS = [("            xr = input_at<Stack>(a, b0 + threadIdx.x, a.n - 3 - t);", "")]
 ABLATIONS = {"as built": [], "no loads of A": _NO_A, "no pixel loads in the walk": _NO_PIXELS,
              "CTA barrier, local stores": _LOCAL,
              "CTA barrier, local stores, no loads of A": _LOCAL + _NO_A,
@@ -234,7 +305,7 @@ def ablate(_other) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("probe", choices=("forms", "bits", "time", "ablate"))
+    ap.add_argument("probe", choices=("forms", "bits", "stack", "time", "ablate"))
     ap.add_argument("--other-csrc", help="a csrc directory to build the other K3 from")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -244,8 +315,9 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = cs.other_chain_lib(args.other_csrc) if args.other_csrc else None
-    {"forms": forms, "bits": bits, "time": time_builds, "ablate": ablate}[args.probe](other)
+    other = other_chain_lib(args.other_csrc) if args.other_csrc else None
+    {"forms": forms, "bits": bits, "stack": stack, "time": time_builds,
+     "ablate": ablate}[args.probe](other)
 
 
 if __name__ == "__main__":

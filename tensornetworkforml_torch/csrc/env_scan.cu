@@ -44,6 +44,24 @@
 //  * Any M (rows and columns past M are zero-filled and never stored) and
 //    any B (a ragged last tile runs on x = 0 and is not stored). 16-byte
 //    loads where M % 4 == 0 and the stack is 16-byte aligned, else 4-byte.
+//
+// The stack form (tnml_right_env_stack, the training sweep's prologue). The
+// same chain, but it keeps every intermediate env: given sites (n, M, 2, M)
+// and the embedded inputs phi (n, B, 2) it writes out (n + 1, B, M), out[n]
+// the one-hot boundary and out[k] the chain from site k to n - 1 closed on
+// it, as contractions.py::right_env_stack_fused computes it. It replaces no
+// Pallas kernel: the JAX package computes these stale right environments by
+// an XLA scan (two einsums a site), which the port ran as 195 host-bound
+// einsum steps a sweep. Its bound is the serial chain's latency a site, as
+// the serving forms' is; at the flagship (n = 196, M = 128, B = 256) 3.3e9
+// FLOP and 51 MB (the site stack read, the env stack written). It differs
+// from the serving forms in three ways only: the two scalars of a sample at
+// a site are read, not computed from a pixel (sin and cos are the caller's);
+// after each site every lane also stores its output of that site's env into
+// out[k] (the env stays in shared memory for the next site as before); the
+// final (B, M) store is left out, since out[0] is stored by the last site.
+// It is a separate instantiation (stack_kernel) of the same walk, on the
+// same plan(), so serving's chain_kernel instantiations keep their code.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -219,6 +237,28 @@ __device__ __forceinline__ float x_at(const Args& a, int b, int site) {
   return b < a.B && site >= 0 ? __ldg(a.x + size_t(b) * a.ldx + site) : 0.f;
 }
 
+// a sample's input at a site: its raw pixel (serving), or its two embedded
+// scalars (the stack form: x is phi (n, B, 2)); zero past B and before site 0
+template <bool Stack>
+__device__ __forceinline__ auto input_at(const Args& a, int b, int site) {
+  if constexpr (Stack) {
+    if (b >= a.B || site < 0) return make_float2(0.f, 0.f);
+    const float* p = a.x + (size_t(site) * a.B + b) * 2;
+    return make_float2(__ldg(p), __ldg(p + 1));
+  } else {
+    return x_at(a, b, site);
+  }
+}
+
+// this thread's sample's (sin, cos) into a (sin, cos) row: from its pixel,
+// or as given
+__device__ __forceinline__ void feed(float* sc, int BT, float xv) { psi(sc, BT, xv); }
+
+__device__ __forceinline__ void feed(float* sc, int BT, float2 p) {
+  sc[threadIdx.x] = p.x;
+  sc[BT + threadIdx.x] = p.y;
+}
+
 // ---- the latency form ------------------------------------------------------------
 
 // one level of a butterfly reduce-scatter: lanes whose bit H is set keep the
@@ -317,9 +357,12 @@ struct Latency {
   }
 
   // the pass's rows row0.. (< r1) of the next env, scaled by this site's
-  // (s, c), stored into every CTA of the cluster
+  // (s, c), stored into every CTA of the cluster; in the stack form also into
+  // the site's slot of the output (the tile's nb samples, rows M apart)
+  template <bool Stack = false>
   __device__ __forceinline__ static void epilogue(Acc& acc, const float* sc, float* vnext,
-                                                  int row0, int r1, int Mv) {
+                                                  int row0, int r1, int Mv, float* slot = nullptr,
+                                                  int nb = 0, int M = 0) {
     const int lane = threadIdx.x & 31;
     float val[32];
 #pragma unroll
@@ -340,6 +383,9 @@ struct Latency {
                                    __shfl_down_sync(0xffffffffu, val[0], 2),
                                    __shfl_down_sync(0xffffffffu, val[0], 3));
     const int row = row0 + (threadIdx.x >> 5) * 4 + (lane >> 3);
+    if constexpr (Stack) {  // lane g holds row g / 8 of the warp's 4, sample g % 8
+      if (row < r1 && (lane & 7) < nb) slot[size_t(lane & 7) * M + row] = val[0];
+    }
     if ((lane & 3) == 0 && row < r1) {
       float4* dst = reinterpret_cast<float4*>(vnext + vaddr(row, lane & 7, Mv));
       if constexpr (C > 1) {
@@ -407,8 +453,10 @@ struct Throughput {
     }
   }
 
+  template <bool Stack = false>
   __device__ __forceinline__ static void epilogue(Acc& acc, const float* sc, float* vnext,
-                                                  int row0, int r1, int) {
+                                                  int row0, int r1, int, float* slot = nullptr,
+                                                  int nb = 0, int M = 0) {
     const int bc = (threadIdx.x & 15) * 4;
     const float4 s = *reinterpret_cast<const float4*>(sc + bc);
     const float4 c = *reinterpret_cast<const float4*>(sc + BT + bc);
@@ -416,11 +464,17 @@ struct Throughput {
     for (int i = 0; i < 8; ++i) {
       const int row = row0 + row_of(i);
       if (row < r1) {
-        *reinterpret_cast<float4*>(vnext + row * BT + bc) =
-            make_float4(s.x * acc.h0[i][0] + c.x * acc.h1[i][0],
-                        s.y * acc.h0[i][1] + c.y * acc.h1[i][1],
-                        s.z * acc.h0[i][2] + c.z * acc.h1[i][2],
-                        s.w * acc.h0[i][3] + c.w * acc.h1[i][3]);
+        const float4 o = make_float4(s.x * acc.h0[i][0] + c.x * acc.h1[i][0],
+                                     s.y * acc.h0[i][1] + c.y * acc.h1[i][1],
+                                     s.z * acc.h0[i][2] + c.z * acc.h1[i][2],
+                                     s.w * acc.h0[i][3] + c.w * acc.h1[i][3]);
+        *reinterpret_cast<float4*>(vnext + row * BT + bc) = o;
+        if constexpr (Stack) {  // the thread's 4 samples of the row, M apart
+          const float e[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (bc + j < nb) slot[size_t(bc + j) * M + row] = e[j];
+        }
       }
     }
   }
@@ -435,8 +489,10 @@ struct Throughput {
 // lane loads while the current one's epilogue and barrier run. Shared memory:
 // the ring (throughput form), two env buffers (the current site's and the
 // next's) and three (sin, cos) rows (a site's is written one site ahead).
-template <class F>
-__global__ void __launch_bounds__(F::NT, 1) chain_kernel(const Args a, const Plan L) {
+// Stack: the stack form (out is the (n + 1, B, M) env stack, x the embedded
+// inputs), else the serving forms (out is the final env, x raw pixels).
+template <class F, bool Stack>
+__device__ __forceinline__ void walk(const Args& a, const Plan& L) {
   extern __shared__ __align__(16) float sm[];
   constexpr int C = F::C, BT = F::BT, NT = F::NT, RP = F::RP, KC = F::KC;
   int rank = 0;
@@ -450,10 +506,19 @@ __global__ void __launch_bounds__(F::NT, 1) chain_kernel(const Args a, const Pla
   float* sc = vbuf + 2 * L.v_floats;  // [3][2][BT]
 
   for (int i = threadIdx.x; i < 2 * L.v_floats; i += NT) vbuf[i] = 0.f;
-  float xr = 0.f;  // this thread's sample's pixel at the site after the next
+  // this thread's sample's input at the site after the next
+  decltype(input_at<Stack>(a, 0, 0)) xr = {};
   if (threadIdx.x < BT) {
-    psi(sc, BT, x_at(a, b0 + threadIdx.x, a.n - 1));
-    xr = x_at(a, b0 + threadIdx.x, a.n - 2);
+    feed(sc, BT, input_at<Stack>(a, b0 + threadIdx.x, a.n - 1));
+    xr = input_at<Stack>(a, b0 + threadIdx.x, a.n - 2);
+  }
+  if constexpr (Stack) {  // out[n]: the boundary e0, this CTA's rows of the tile
+    float* top = a.out + (size_t(a.n) * a.B + b0) * a.M;
+    const int rows = r1 - r0;
+    for (int e = threadIdx.x; e < BT * rows; e += NT) {
+      const int b = e / rows, l = r0 + e % rows;
+      if (b0 + b < a.B) top[size_t(b) * a.M + l] = l == 0 ? 1.f : 0.f;
+    }
   }
   __syncthreads();
   if (threadIdx.x < BT) vbuf[F::vaddr(0, threadIdx.x, L.Mv)] = 1.f;  // e0
@@ -503,8 +568,8 @@ __global__ void __launch_bounds__(F::NT, 1) chain_kernel(const Args a, const Pla
           // the cluster; the sin and cos of the next site go out meanwhile
           cluster_arrive<C>();
           if (threadIdx.x < BT && t + 1 < a.n) {
-            psi(sc + ((t + 1) % 3) * 2 * BT, BT, xr);
-            xr = x_at(a, b0 + threadIdx.x, a.n - 3 - t);
+            feed(sc + ((t + 1) % 3) * 2 * BT, BT, xr);
+            xr = input_at<Stack>(a, b0 + threadIdx.x, a.n - 3 - t);
           }
           __syncwarp();
           cluster_wait<C>();
@@ -523,7 +588,15 @@ __global__ void __launch_bounds__(F::NT, 1) chain_kernel(const Args a, const Pla
             advance();
           }
         }
-        if (c == NC - 1) F::epilogue(acc, sc + (t % 3) * 2 * BT, vnext, r0 + p * RP, r1, L.Mv);
+        if (c == NC - 1) {
+          if constexpr (Stack) {  // out[n-1-t]: this site's env, the tile's rows
+            float* slot = a.out + (size_t(a.n - 1 - t) * a.B + b0) * a.M;
+            F::template epilogue<true>(acc, sc + (t % 3) * 2 * BT, vnext, r0 + p * RP, r1, L.Mv,
+                                       slot, a.B - b0, a.M);
+          } else {
+            F::epilogue(acc, sc + (t % 3) * 2 * BT, vnext, r0 + p * RP, r1, L.Mv);
+          }
+        }
       }
     }
   }
@@ -531,19 +604,34 @@ __global__ void __launch_bounds__(F::NT, 1) chain_kernel(const Args a, const Pla
   // every CTA's last rows are in; after this no CTA touches another's memory
   cluster_arrive<C>();
   cluster_wait<C>();
-  const float* v = vbuf + (a.n & 1) * L.v_floats;
-  const int rows = r1 - r0;
-  for (int e = threadIdx.x; e < BT * rows; e += NT) {
-    const int b = e / rows, l = r0 + e % rows;
-    if (b0 + b < a.B) a.out[size_t(b0 + b) * a.M + l] = v[F::vaddr(l, b, L.Mv)];
+  if constexpr (!Stack) {
+    const float* v = vbuf + (a.n & 1) * L.v_floats;
+    const int rows = r1 - r0;
+    for (int e = threadIdx.x; e < BT * rows; e += NT) {
+      const int b = e / rows, l = r0 + e % rows;
+      if (b0 + b < a.B) a.out[size_t(b0 + b) * a.M + l] = v[F::vaddr(l, b, L.Mv)];
+    }
   }
 }
 
+// serving: the final env (B, M) from raw pixels
 template <class F>
+__global__ void __launch_bounds__(F::NT, 1) chain_kernel(const Args a, const Plan L) {
+  walk<F, false>(a, L);
+}
+
+// the training sweep's prologue: the env stack (n + 1, B, M) from embedded inputs
+template <class F>
+__global__ void __launch_bounds__(F::NT, 1) stack_kernel(const Args a, const Plan L) {
+  walk<F, true>(a, L);
+}
+
+template <class F, bool Stack>
 cudaError_t launch(const Args& a, const Plan& L, cudaStream_t stream) {
+  void (*const kernel)(const Args, const Plan) = Stack ? stack_kernel<F> : chain_kernel<F>;
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(chain_kernel<F>,
+    cudaError_t err = cudaFuncSetAttribute(kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(SMEM_LIMIT));
     if (err != cudaSuccess) return err;
@@ -561,22 +649,24 @@ cudaError_t launch(const Args& a, const Plan& L, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = F::C > 1 ? 1 : 0;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, chain_kernel<F>, a, L);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, L);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // the instantiated forms: the throughput form (C = 1, BT = 64) and the latency
-// form on clusters of C = 1..4 (BT = 8; the clusters of 3 run 12 warps)
+// form on clusters of C = 1..4 (BT = 8; the clusters of 3 run 12 warps), each
+// as a serving chain and as a stack
+template <bool Stack>
 cudaError_t dispatch(const Args& a, const Plan& L, cudaStream_t s) {
   if (!L.fits) return cudaErrorInvalidValue;
-  if (L.form == THROUGHPUT) return L.C == 1 && L.BT == 64 ? launch<Throughput>(a, L, s)
+  if (L.form == THROUGHPUT) return L.C == 1 && L.BT == 64 ? launch<Throughput, Stack>(a, L, s)
                                                           : cudaErrorInvalidValue;
   if (L.BT != 8) return cudaErrorInvalidValue;
   switch (L.C) {
-    case 1: return launch<Latency<1>>(a, L, s);
-    case 2: return launch<Latency<2>>(a, L, s);
-    case 3: return launch<Latency<3, 12>>(a, L, s);
-    case 4: return launch<Latency<4>>(a, L, s);
+    case 1: return launch<Latency<1>, Stack>(a, L, s);
+    case 2: return launch<Latency<2>, Stack>(a, L, s);
+    case 3: return launch<Latency<3, 12>, Stack>(a, L, s);
+    case 4: return launch<Latency<4>, Stack>(a, L, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -634,12 +724,13 @@ cudaError_t card(Card* out) {
   return cudaSuccess;
 }
 
+template <bool Stack>
 int run(const Plan& L, const float* sites, const float* x, int ldx, float* out, int n, int M,
         int B, void* stream) {
   if (n < 1 || M < 1 || B < 1 || ldx < n) return cudaErrorInvalidValue;
   Args a = {sites, x, out, ldx, n, M, B,
             M % 4 == 0 && reinterpret_cast<uintptr_t>(sites) % 16 == 0};
-  return dispatch(a, L, static_cast<cudaStream_t>(stream));
+  return dispatch<Stack>(a, L, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -652,7 +743,19 @@ extern "C" int tnml_right_env_chain(const float* sites, const float* x, int ldx,
   Card c;
   const cudaError_t err = card(&c);
   if (err != cudaSuccess) return err;
-  return run(plan(M, B, c.sms, c.cap), sites, x, ldx, out, n, M, B, stream);
+  return run<false>(plan(M, B, c.sms, c.cap), sites, x, ldx, out, n, M, B, stream);
+}
+
+// The stack form: sites (n, M, 2, M) f32 contiguous; phi (n, B, 2) f32
+// contiguous, the embedded inputs; out (n + 1, B, M) f32 contiguous, every
+// right environment of the chain, out[n] the one-hot boundary. Launches the
+// form plan() picks on `stream`; returns a cudaError_t.
+extern "C" int tnml_right_env_stack(const float* sites, const float* phi, float* out, int n,
+                                    int M, int B, void* stream) {
+  Card c;
+  const cudaError_t err = card(&c);
+  if (err != cudaSuccess) return err;
+  return run<true>(plan(M, B, c.sms, c.cap), sites, phi, n, out, n, M, B, stream);
 }
 
 // The same chain in a given form (form 0 latency, 1 throughput; C CTAs a
@@ -662,7 +765,7 @@ extern "C" int tnml_right_env_chain(const float* sites, const float* x, int ldx,
 extern "C" int tnml_right_env_chain_as(int form, int C, int BT, const float* sites,
                                        const float* x, int ldx, float* out, int n, int M, int B,
                                        void* stream) {
-  return run(make_plan(form, C, BT, M), sites, x, ldx, out, n, M, B, stream);
+  return run<false>(make_plan(form, C, BT, M), sites, x, ldx, out, n, M, B, stream);
 }
 
 // The current card: out = {SMs, clusters of 2, 3 and 4 CTAs it holds at once};

@@ -1,4 +1,5 @@
-"""Fused psi-embedding + MPS chain contraction: the serving forward's kernel.
+"""Fused psi-embedding + MPS chain contraction: the serving forward's kernel,
+and its stack form for the training sweep's prologue.
 
 ``right_env_chain`` computes the right environment of the whole chain from
 raw pixels. On a CUDA tensor it launches the hand-written kernel
@@ -13,6 +14,10 @@ once): the latency form (a batch tile of 8 samples on a cluster of up to 4
 CTAs, each owning a slice of A's rows) and the throughput form (64 samples a
 CTA, all rows). ``plan`` mirrors the kernel's choice; ``kernel_plan`` asks
 the built library which form a shape runs on the current card.
+
+``right_env_stack_chain`` is the same chain keeping every right environment
+(``right_env_stack_fused``'s output) from the embedded inputs: one launch of
+the kernel's stack form in place of one host-issued step a site.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from tensornetworkforml_torch.ops.contractions import (
     boundary_vector,
     chain_scores,
     right_env_final_fused,
+    right_env_stack_fused,
 )
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels import _build
@@ -38,6 +44,14 @@ def right_env_chain_reference(sites: torch.Tensor, x_raw: torch.Tensor) -> torch
     """
     e0 = boundary_vector(sites.shape[1], dtype=sites.dtype, device=sites.device)
     return right_env_final_fused(sites, psi_embed(x_raw).transpose(0, 1), e0)
+
+
+def right_env_stack_reference(sites: torch.Tensor, phi_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of the stack form: ``sites (n, M, D, M)``, ``phi_t
+    (n, B, D)`` -> ``(n+1, B, M)``, the einsum loop ``right_env_stack_fused``
+    closed on the one-hot boundary; any dtype and device."""
+    e0 = boundary_vector(sites.shape[1], dtype=sites.dtype, device=sites.device)
+    return right_env_stack_fused(sites, phi_t, e0)
 
 
 LATENCY, THROUGHPUT = 0, 1
@@ -119,6 +133,16 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.tnml_right_env_chain_as.argtypes = [ctypes.c_int] * 3 + fn.argtypes
         lib.tnml_right_env_chain_as.restype = ctypes.c_int
+        lib.tnml_right_env_stack.argtypes = [
+            ctypes.c_void_p,  # sites
+            ctypes.c_void_p,  # phi_t
+            ctypes.c_void_p,  # out
+            ctypes.c_int,     # n
+            ctypes.c_int,     # M
+            ctypes.c_int,     # B
+            ctypes.c_void_p,  # stream
+        ]
+        lib.tnml_right_env_stack.restype = ctypes.c_int
         lib.tnml_env_scan_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.tnml_env_scan_plan.restype = ctypes.c_int
         lib.tnml_env_scan_card.argtypes = [ctypes.c_void_p]
@@ -208,6 +232,72 @@ def right_env_chain(sites: torch.Tensor, x_raw: torch.Tensor) -> torch.Tensor:
 
 
 right_env_chain.launches = 0
+
+
+def right_env_stack_chain(sites: torch.Tensor, phi_t: torch.Tensor) -> torch.Tensor:
+    """Every right environment of the chain, ``(n+1, B, M)``.
+
+    ``sites (n, M, 2, M)``, ``phi_t (n, B, 2)`` (the embedded inputs,
+    site-major); equals ``right_env_stack_fused(sites, phi_t, e0)`` with the
+    one-hot boundary ``e0``: ``out[n]`` is ``e0`` over the batch and
+    ``out[k]`` the chain from site ``k`` to ``n - 1`` closed on it. On CPU
+    tensors of those shapes it runs that plain version
+    (``right_env_stack_reference``).
+
+    On CUDA tensors it launches the stack form of ``csrc/env_scan.cu``: the
+    serving kernel's walk over the sites on the same plan, reading the two
+    embedded scalars of a sample at a site and storing each site's env as it
+    goes. It replaces no Pallas kernel; the JAX package computes these stale
+    right environments with an XLA scan. Its bound is the serial chain's
+    latency a site (3.3e9 FLOP and 51 MB of stacks at the flagship, n=196,
+    M=128, B=256). Full float32 FMAs in a fixed order: repeats give the same
+    bits, and the sums run in another order than cuBLAS's, so the result
+    differs from the plain version at float32's rounding.
+
+    CUDA inputs must be float32, contiguous and on one device; anything else
+    raises, it never falls back. Each launch adds one to
+    ``right_env_stack_chain.launches``.
+    """
+    if sites.dim() != 4 or sites.shape[2] != 2 or sites.shape[1] != sites.shape[3]:
+        raise ValueError(f"sites must be (n, M, 2, M), got {tuple(sites.shape)}")
+    n, M = sites.shape[0], sites.shape[1]
+    if phi_t.dim() != 3 or phi_t.shape[0] != n or phi_t.shape[2] != 2:
+        raise ValueError(f"phi_t must be ({n}, B, 2), got {tuple(phi_t.shape)}")
+    if sites.device.type == "cpu" and phi_t.device.type == "cpu":
+        return right_env_stack_reference(sites, phi_t)
+    if sites.device.type != "cuda" or phi_t.device != sites.device:
+        raise ValueError(
+            "right_env_stack_chain takes CPU tensors or CUDA tensors on one device, "
+            f"got sites on {sites.device} and phi_t on {phi_t.device}"
+        )
+    if sites.dtype != torch.float32 or phi_t.dtype != torch.float32:
+        raise TypeError(
+            f"the CUDA kernel takes float32, got {sites.dtype} and {phi_t.dtype}"
+        )
+    if not sites.is_contiguous() or not phi_t.is_contiguous():
+        raise ValueError("sites and phi_t must be contiguous")
+    B = phi_t.shape[1]
+    if n == 0:
+        return boundary_vector(M, device=sites.device).expand(1, B, M).contiguous()
+    out = torch.empty((n + 1, B, M), dtype=torch.float32, device=sites.device)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(sites.device):
+        stream = torch.cuda.current_stream(sites.device).cuda_stream
+        err = lib.tnml_right_env_stack(
+            sites.data_ptr(), phi_t.data_ptr(), out.data_ptr(), n, M, B, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"right_env_stack_chain kernel failed: cudaError {err} "
+            f"({lib.tnml_cuda_error_string(err).decode()})"
+        )
+    right_env_stack_chain.launches += 1
+    return out
+
+
+right_env_stack_chain.launches = 0
 
 
 def forward_scores(mps, x_raw: torch.Tensor) -> torch.Tensor:

@@ -58,10 +58,12 @@ IEEE float32, and ``"tensorfloat32"``, ``"high"`` and ``"bfloat16"`` in TF32;
 on the CPU every name gives the float32 result. The splits re-enter IEEE
 float32 (``ops/svd.py``), and the hand-written kernels (K1, K2, K4a and K4b
 in 3xTF32, K7) keep their own precision in every mode, as the JAX package's
-Pallas bodies keep theirs; what TF32 reaches is the environments, the
-merge, the gradient, the output and, in the hybrid engine, ``R`` and the
-carried environment. The factored update's iteration keeps its own
-precision (``train/factored_step.py``).
+Pallas bodies keep theirs; what TF32 reaches is the carried environments,
+the merge, the gradient, the output and, in the hybrid engine, ``R``. The
+factored update's iteration keeps its own precision
+(``train/factored_step.py``). The prologue's stale right environments are
+K3's stack form (one launch, full float32) on float32 card inputs in every
+scope, and the einsum loop on the CPU and in float64.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ from tensornetworkforml_torch.ops.contractions import (
     transfer_suffix_stack,
 )
 from tensornetworkforml_torch.ops.embedding import psi_embed
+from tensornetworkforml_torch.ops.kernels.env_scan import right_env_stack_chain
 from tensornetworkforml_torch.ops.kernels.polar_split import polar_iterate
 from tensornetworkforml_torch.ops.kernels.presplit_kernel import two_site_presplit
 from tensornetworkforml_torch.ops.kernels.step_kernel import (
@@ -449,6 +452,17 @@ def _fused_sweep(sites, label_site, phi_t, y_onehot, r_envs, f0, lr, weight_dec,
     return a_lefts.reshape(N - 1, M, D, M).to(dtype), label_final, f, metrics
 
 
+def _right_envs(sites, phi_t, e0) -> torch.Tensor:
+    """The stale suffix environments ``(N+1, B, M)``: the stack form of K3
+    (``right_env_stack_chain``, one launch, full float32 whatever the scope)
+    for float32 inputs with D=2 on the card, else the einsum loop
+    (``right_env_stack_fused``): on the CPU and in float64."""
+    if (sites.is_cuda and phi_t.is_cuda and sites.shape[2] == 2
+            and sites.dtype == phi_t.dtype == torch.float32):
+        return right_env_stack_chain(sites.contiguous(), phi_t)
+    return right_env_stack_fused(sites, phi_t, e0)
+
+
 def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks, T, cfg,
                         dp=None):
     """One full right sweep (label leg moves 0 -> N-1). Returns
@@ -466,7 +480,7 @@ def _sweep_right_arrays(sites, label_site, phi, y_onehot, lr, weight_dec, ranks,
     # per-batch precomputation: stale suffix environments (index 0 unused)
     with span(SWEEP_PROLOGUE):
         phi_t = phi.transpose(0, 1).contiguous()  # (N, B, D)
-        r_envs = right_env_stack_fused(sites, phi_t, e0)  # (N+1, B, M)
+        r_envs = _right_envs(sites, phi_t, e0)  # (N+1, B, M)
         f0 = chain_scores(e0.expand(B, M), label_site, phi[:, 0, :], r_envs[1])
 
     if cfg.engine in ("hybrid", "fused"):

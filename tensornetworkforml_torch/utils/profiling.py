@@ -136,14 +136,19 @@ def profile_model(
     ``device`` (``None``: the card).
 
     Times (device-synced, after a warm-up): the full forward, one full
-    sweep, the environment-stack build, and one SVD split at the sweep's
-    matrix shape.
+    sweep, the sweep prologue's environment stack (on the path the sweep
+    takes), and one SVD split at the sweep's matrix shape.
     """
     from tensornetworkforml_torch.models.mps import mps_forward, mps_init, resolve_device
-    from tensornetworkforml_torch.ops.contractions import boundary_vector, right_env_stack_fused
+    from tensornetworkforml_torch.ops.contractions import boundary_vector
     from tensornetworkforml_torch.ops.embedding import psi_embed
     from tensornetworkforml_torch.ops.svd import truncated_svd_split
-    from tensornetworkforml_torch.train.sweep import SweepConfig, one_hot_labels, sweep_once
+    from tensornetworkforml_torch.train.sweep import (
+        SweepConfig,
+        _right_envs,
+        one_hot_labels,
+        sweep_once,
+    )
 
     dtype = torch.float32 if dtype is None else dtype
     device = resolve_device(device)
@@ -155,7 +160,7 @@ def profile_model(
     y = one_hot_labels(torch.as_tensor(rng.integers(0, L, batch), device=device), L, dtype)
     cfg = SweepConfig(act_fn="softmax", loss_fn="full_cross_ent")
     e0 = boundary_vector(M, dtype=dtype, device=device)
-    phi_t = phi.transpose(0, 1)
+    phi_t = phi.transpose(0, 1).contiguous()
     bmat = torch.as_tensor(rng.standard_normal((M * 2, L * 2 * M)), dtype=dtype, device=device)
 
     # warm-up: kernel builds, allocator, first-call costs
@@ -163,7 +168,7 @@ def profile_model(
     m2, *_ = sweep_once(mps, phi, y, 0.01, 1.0, cfg)
     m3, *_ = sweep_once(m2, phi, y, 0.01, 1.0, cfg)
     _device_sync(m3.sites)
-    _device_sync(right_env_stack_fused(mps.sites, phi_t, e0))
+    _device_sync(_right_envs(mps.sites, phi_t, e0))
     _device_sync(truncated_svd_split(bmat, M))
 
     timer = Timer()
@@ -174,7 +179,7 @@ def profile_model(
             m2, *_ = sweep_once(mps, phi, y, 0.01, 1.0, cfg)
             _device_sync(m2.sites)
         with timer.scope("env_stack"):
-            _device_sync(right_env_stack_fused(mps.sites, phi_t, e0))
+            _device_sync(_right_envs(mps.sites, phi_t, e0))
         with timer.scope("svd_split"):
             _device_sync(truncated_svd_split(bmat, M))
     return timer.summary()

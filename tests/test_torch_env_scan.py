@@ -1,6 +1,7 @@
 """The chain kernel's module: its plain version against the JAX package's
 Pallas kernel (interpret mode on the CPU), and the CUDA kernel against the
-plain version on a card.
+plain version on a card; then its stack form (the training sweep's
+prologue) against the einsum loop it replaces, on the CPU and on a card.
 
 JAX is imported inside the fixtures, so that the tests marked ``cuda`` run
 on a machine with a card and no JAX:
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from tensornetworkforml_torch.models.mps import mps_forward
+from tensornetworkforml_torch.ops.contractions import boundary_vector, right_env_stack_fused
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.ops.kernels import env_scan
 from tensornetworkforml_torch.utils.checkpoint import mps_from_numpy
@@ -245,3 +247,195 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     big = torch.zeros((1, 3585, 2, 3585), device=cuda)  # no form's buffers fit
     with pytest.raises(RuntimeError, match="invalid argument"):
         env_scan.right_env_chain(big, torch.zeros((3, 1), device=cuda))
+
+
+# ---- the stack form: every right environment, the training sweep's prologue ----
+
+def _stack_inputs(n, M, B, seed=0):
+    """A chain ``(n, M, 2, M)`` and embedded inputs ``(n, B, 2)``, site-major."""
+    sites, x = _chain(n, M, B, seed)
+    return torch.as_tensor(sites), psi_embed(torch.as_tensor(x)).transpose(0, 1).contiguous()
+
+
+def test_stack_chain_on_cpu_is_the_einsum_stack():
+    """On CPU tensors the stack form runs its plain version: the einsum loop's
+    bits, every slot, and no launch."""
+    n, M, B = 5, 3, 7
+    sites, phi_t = _stack_inputs(n, M, B, seed=n * M + B)
+    launches = env_scan.right_env_stack_chain.launches
+    got = env_scan.right_env_stack_chain(sites, phi_t)
+    assert got.shape == (n + 1, B, M) and got.dtype == torch.float32
+    assert torch.equal(got, right_env_stack_fused(sites, phi_t, boundary_vector(M)))
+    np.testing.assert_array_equal(got[n].numpy(), np.eye(1, M).repeat(B, 0))
+    assert env_scan.right_env_stack_chain.launches == launches
+
+
+def test_stack_chain_rejects_shapes_and_devices_it_does_not_take():
+    sites, phi_t = _stack_inputs(5, 4, 3)
+    with pytest.raises(ValueError, match=r"\(n, M, 2, M\)"):
+        env_scan.right_env_stack_chain(sites[:, :, :1], phi_t[:, :, :1])  # D = 1
+    with pytest.raises(ValueError, match=r"\(n, M, 2, M\)"):
+        env_scan.right_env_stack_chain(sites[:, :3], phi_t)  # not square
+    with pytest.raises(ValueError, match="phi_t"):
+        env_scan.right_env_stack_chain(sites, phi_t[:4])  # wrong n
+    with pytest.raises(ValueError, match="phi_t"):
+        env_scan.right_env_stack_chain(sites, phi_t.transpose(0, 1))  # batch-major
+    with pytest.raises(ValueError, match="CUDA"):
+        env_scan.right_env_stack_chain(sites, phi_t.to("meta"))  # mixed devices
+    with pytest.raises(ValueError, match="CUDA"):
+        env_scan.right_env_stack_chain(sites.to("meta"), phi_t.to("meta"))
+
+
+def _sweep_model(device, dtype=torch.float32, N=12, M=8, L=3, B=16, seed=5):
+    from tensornetworkforml_torch.models.mps import product_init
+    from tensornetworkforml_torch.train.sweep import one_hot_labels
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.random((B, N)), dtype=dtype, device=device)
+    y = torch.as_tensor(rng.integers(0, L, B), device=device)
+    mps = product_init(torch.Generator().manual_seed(seed), N=N, M=M, L=L, act_fn="linear",
+                       loss_fn="MSE", dtype=dtype, device=device)
+    return mps, psi_embed(x), one_hot_labels(y, L, dtype)
+
+
+def _sweep_cfg(engine, **kw):
+    from tensornetworkforml_torch.train.sweep import SweepConfig
+
+    return SweepConfig(**{**dict(act_fn="linear", loss_fn="MSE", L2_flag=False,
+                                 split_mode="canonical", svd_method="polar", engine=engine), **kw})
+
+
+def _two_sweeps(mps, phi, y1h, cfg):
+    """A right sweep, then the left sweep of its result (the mirrored chain)."""
+    from tensornetworkforml_torch.train.sweep import sweep_once
+
+    first = sweep_once(mps, phi, y1h, 0.05, 1e-5, cfg)
+    return first, sweep_once(first[0], phi, y1h, 0.05, 1e-5, cfg)
+
+
+@pytest.mark.parametrize("engine", ["xla", "hybrid"])
+def test_sweep_prologue_on_cpu_keeps_the_einsum_stack(engine, monkeypatch):
+    """On the CPU both sweeps (right, then left on the mirrored chain) give
+    the bits of a prologue that calls the einsum loop directly, and launch
+    nothing."""
+    from tensornetworkforml_torch.train import sweep as tsw
+
+    mps, phi, y1h = _sweep_model("cpu")
+    cfg = _sweep_cfg(engine)
+    launches = env_scan.right_env_stack_chain.launches
+    got = _two_sweeps(mps, phi, y1h, cfg)
+    assert env_scan.right_env_stack_chain.launches == launches
+    monkeypatch.setattr(tsw, "_right_envs", lambda s, p, e0: right_env_stack_fused(s, p, e0))
+    want = _two_sweeps(mps, phi, y1h, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g[0].sites, w[0].sites)
+        assert torch.equal(g[0].label_site, w[0].label_site)
+        assert torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])
+
+
+# On the card, against the float64 plain version, each slot within RTOL of its
+# own largest entry (the slots' scales differ along the chain): the flagship
+# prologue (n=196, M=128, B=256) and M=256's, the latency form on a ragged M
+# (4-byte loads) and B, and the throughput form (B past the switch) on a
+# ragged last tile.
+STACK_CASES = [(196, 128, 256), (196, 256, 256), (5, 37, 9), (17, 40, 4201)]
+
+
+def _assert_stack_close(got, want):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got.double() - want).abs().flatten(1).amax(1)
+    scale = want.abs().flatten(1).amax(1)
+    assert (err <= RTOL * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,M,B", STACK_CASES)
+def test_stack_kernel_matches_float64_on_card(n, M, B, cuda):
+    sites, phi_t = (t.to(cuda) for t in _stack_inputs(n, M, B, seed=M))
+    launches = env_scan.right_env_stack_chain.launches
+    got = env_scan.right_env_stack_chain(sites, phi_t)
+    torch.cuda.synchronize()
+    assert env_scan.right_env_stack_chain.launches == launches + 1
+    _assert_stack_close(got, env_scan.right_env_stack_reference(sites.double(), phi_t.double()))
+    assert torch.equal(got[n], env_scan.right_env_stack_reference(sites, phi_t)[n])  # exactly
+
+
+@pytest.mark.cuda
+def test_stack_kernel_matches_float64_on_a_mirrored_chain_on_card(cuda):
+    """The left sweep's prologue: the mirrored, contiguous chain of a
+    flagship model after one right sweep (the label at the end) and the
+    flipped inputs."""
+    from tensornetworkforml_torch.train.sweep import _mirror_sites, sweep_once
+
+    mps, phi, y1h = _sweep_model(cuda, N=196, M=128, L=10, B=256)
+    swept = sweep_once(mps, phi, y1h, 0.05, 1e-5, _sweep_cfg("hybrid"))[0]
+    sites = _mirror_sites(swept.sites).contiguous()
+    phi_t = phi.flip(1).transpose(0, 1).contiguous()
+    got = env_scan.right_env_stack_chain(sites, phi_t)
+    want = env_scan.right_env_stack_reference(sites.double(), phi_t.double())
+    assert want[1:].abs().flatten(1).amax(1).min() > 0  # no slot the sweep reads is zero
+    _assert_stack_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,M,B", STACK_CASES)
+def test_stack_kernel_gives_the_same_bits_twice_on_card(n, M, B, cuda):
+    sites, phi_t = (t.to(cuda) for t in _stack_inputs(n, M, B, seed=M))
+    first = env_scan.right_env_stack_chain(sites, phi_t)
+    second = env_scan.right_env_stack_chain(sites, phi_t)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_stack_kernel_rejects_what_it_does_not_take(cuda):
+    sites, phi_t = (t.to(cuda) for t in _stack_inputs(5, 4, 3))
+    with pytest.raises(TypeError):
+        env_scan.right_env_stack_chain(sites.double(), phi_t.double())
+    with pytest.raises(TypeError):
+        env_scan.right_env_stack_chain(sites, phi_t.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        env_scan.right_env_stack_chain(sites.transpose(1, 3), phi_t)
+    with pytest.raises(ValueError, match="contiguous"):
+        env_scan.right_env_stack_chain(sites, phi_t.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        env_scan.right_env_stack_chain(sites, phi_t.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["hybrid", "xla"])
+def test_sweep_launches_the_stack_kernel_once_on_card(engine, cuda, monkeypatch):
+    """Each sweep, right and then left, launches the stack form once, and
+    starts from the batch output the einsum loop gives on the same model,
+    within float32's rounding."""
+    from tensornetworkforml_torch.train import sweep as tsw
+
+    mps, phi, y1h = _sweep_model(cuda, N=20, M=16, L=10, B=64)
+    cfg = _sweep_cfg(engine)
+    launches = env_scan.right_env_stack_chain.launches
+    right = tsw.sweep_once(mps, phi, y1h, 0.05, 1e-5, cfg)
+    left = tsw.sweep_once(right[0], phi, y1h, 0.05, 1e-5, cfg)
+    assert env_scan.right_env_stack_chain.launches == launches + 2
+    monkeypatch.setattr(tsw, "_right_envs", lambda s, p, e0: right_env_stack_fused(s, p, e0))
+    for model, got in ((mps, right), (right[0], left)):
+        want = tsw.sweep_once(model, phi, y1h, 0.05, 1e-5, cfg)
+        np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=RTOL,
+                                   atol=RTOL * float(want[1].abs().max()))
+
+
+@pytest.mark.cuda
+def test_sweep_keeps_the_einsum_stack_on_card(cuda):
+    """On a float64 model the prologue stays the einsum loop: no launch."""
+    mps, phi, y1h = _sweep_model(cuda, dtype=torch.float64)
+    launches = env_scan.right_env_stack_chain.launches
+    _two_sweeps(mps, phi, y1h, _sweep_cfg("xla", svd_method="svd"))
+    assert env_scan.right_env_stack_chain.launches == launches
+
+
+@pytest.mark.cuda
+def test_reduced_precision_sweep_launches_the_stack_kernel_on_card(cuda):
+    """Under a reduced ``matmul_precision`` the prologue is the stack form
+    too, one launch a sweep, in full float32 whatever the scope."""
+    mps, phi, y1h = _sweep_model(cuda)
+    launches = env_scan.right_env_stack_chain.launches
+    _two_sweeps(mps, phi, y1h, _sweep_cfg("xla", matmul_precision="tensorfloat32"))
+    assert env_scan.right_env_stack_chain.launches == launches + 2
