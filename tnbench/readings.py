@@ -3,24 +3,22 @@
     python3 tnbench/readings.py --workload <cell> --seeds 1,2,3 [--control 4,5,6]
         [--fault half_batch:7,8,9] [--fault unchanged:7] [--seconds 3]
 
-For each seed of ``--seeds`` it runs the cell's set-up and a short window
-(training needs none: its checked epochs run in set-up) and prints the
-numbers its check compares, one JSON line a seed. ``--control`` runs the
-control on those seeds in the program's place: for serving the reference in
-float32 with every product's operands rounded to TF32, for training the
-program's own TF32 path (``matmul_precision="tensorfloat32"``). ``--fault
-name:seeds`` plants a fault in the program: ``half_batch`` (each batch's
-second half replaced by its first, so every sum over the batch is twice the
-sum over the half kept), ``unchanged`` (every epoch returns the model it was
-given), ``k1_pass_cut`` (the polar iteration, K1, run with the last two
-passes of its final schedule cut, on the hybrid engine's every step). The
-benchmark's runs never run these; they run on the card, at the cell's own
-sizes, once, when the limits are set.
+For each seed of ``--seeds`` it runs the cell's set-up, a window of
+``--seconds`` and the check, as ``run.py`` does, and prints the numbers the
+check compares, one JSON line a seed. ``--control`` runs the generator's
+control on those seeds in the program's place (``control`` of the protocol
+in ``run.py``). ``--fault name:seeds`` plants a fault of the generator's
+list for this traffic (``faults``) for the set-up and the window: the
+names are the generator's, and each generator's docstring says what its
+faults break. The benchmark's runs never run these; they run on the card, at
+the cell's own sizes, once, when the limits are set.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import sys
 import time
@@ -35,84 +33,44 @@ def _seeds(text: str) -> list:
     return [int(s) for s in text.split(",") if s]
 
 
-def _half_batch(step):
-    """``step`` (``fused_epoch``) fed each batch's first half twice."""
-    def faulty(model, x, y, *args, **kwargs):
-        axis = y.dim() - 1  # the batch axis
-        h = y.shape[axis] // 2
-        x2 = torch.cat([x.narrow(axis, 0, h)] * 2, dim=axis)
-        y2 = torch.cat([y.narrow(axis, 0, h)] * 2, dim=axis)
-        return step(model, x2, y2, *args, **kwargs)
-    return faulty
-
-
-def _unchanged(step):
-    """``step`` returning the model it was given."""
-    def faulty(model, *args, **kwargs):
-        return (model, *step(model, *args, **kwargs)[1:])
-    return faulty
-
-
-def _k1_pass_cut(polar_iterate, cut: int = 2):
-    """``polar_iterate`` with the last ``cut`` passes of its final schedule
-    left out (the reference's copy of the schedule)."""
-    from tnbench.reference import mps as ref
-
-    final = ref.pe_schedule(*ref.POLAR_FINAL)[:-cut]
-
-    def faulty(y, g, n2=None, **kwargs):
-        return polar_iterate(y, g, n2, final_coeffs=final, **kwargs)
-    return faulty
-
-
-# name: (the (module, attribute) it wraps, None for the generator's ENTRY; wrapper)
-FAULTS = {"half_batch": (None, _half_batch), "unchanged": (None, _unchanged),
-          "k1_pass_cut": (("tensornetworkforml_torch.train.sweep", "polar_iterate"),
-                          _k1_pass_cut)}
-
-
-def fault_target(drv, fault: str):
-    """The module and attribute that ``fault`` wraps in the generator
-    ``drv``'s run."""
-    import importlib
-
-    target, _ = FAULTS[fault]
-    module, name = target or drv.ENTRY
-    return importlib.import_module(module), name
+@contextlib.contextmanager
+def planted(drv, tr: dict, fault: str):
+    """The generator ``drv``'s ``fault`` for the traffic ``tr`` in place
+    while the block runs: the dotted attribute it names replaced by its
+    wrapper of it, and put back after."""
+    faults = drv.faults(tr)
+    if fault not in faults:
+        raise ValueError(f"no fault {fault!r} in this traffic's path; its faults: {sorted(faults)}")
+    (module, attribute), wrap = faults[fault]
+    owner = importlib.import_module(module)
+    *path, name = attribute.split(".")
+    for part in path:
+        owner = getattr(owner, part)
+    real = getattr(owner, name)
+    setattr(owner, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
 
 
 def reading(c: dict, seed: int, device, seconds: float, role: str) -> dict:
     """One seed's numbers for ``role``: ``program``, ``control`` or a fault."""
-    import importlib
-
-    from tnbench import run, serve
+    from tnbench import run
     from tnbench.trace import Tracer
 
     cfg, tr = c["config"], c["traffic"]
+    drv = run.generator(tr["kind"])
     t0 = time.perf_counter()
-    if tr["kind"] == "serve_closed_loop":
-        if role not in ("program", "control"):
-            raise ValueError(f"serving has no planted fault {role!r} here")
-        state = serve.setup(cfg, tr, seed, device)
-        win = serve.window(state, tr, seconds, Tracer(False, device))
-        serve.free(state)
-        outs = serve.control_outputs(state, win, device) if role == "control" else None
-        got = serve.check(state, win, cfg, tr, device, outs=outs)
+    if role == "control":
+        got = drv.control(cfg, tr, seed, device, seconds)
     else:
-        drv = importlib.import_module(run.GENERATORS[tr["kind"]])
-        precision = "tensorfloat32" if role == "control" else None
-        if role in FAULTS:
-            module, name = fault_target(drv, role)
-            real = getattr(module, name)
-            setattr(module, name, FAULTS[role][1](real))
-            try:
-                state = drv.setup(cfg, tr, seed, device)
-            finally:
-                setattr(module, name, real)
-        else:
-            state = drv.setup(cfg, tr, seed, device, precision=precision)
-        drv.free(state)
-        got = drv.check(state, None, cfg, tr, device)
+        fault = planted(drv, tr, role) if role != "program" else contextlib.nullcontext()
+        with fault:
+            state = drv.setup(cfg, tr, seed, device)
+            win = drv.window(state, tr, seconds, Tracer(False, device))
+            drv.free(state)
+        got = drv.check(state, win, cfg, tr, device)
     return {"seed": seed, "role": role, **got["numbers"],
             "items": got["items"] if len(got["items"]) <= 8 else None,
             "profile": got.get("profile"),
@@ -124,7 +82,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", default="")
     ap.add_argument("--control", default="")
-    ap.add_argument("--fault", action="append", default=[])
+    ap.add_argument("--fault", action="append", default=[],
+                    help="name:seeds, the name one of the generator's faults for the traffic")
     ap.add_argument("--seconds", type=float, default=3.0)
     args = ap.parse_args(argv)
     if str(ROOT) not in sys.path:
@@ -136,10 +95,15 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     c = run.load_cell(run.load_json(ROOT / "BENCHMARK.json"), args.workload)
+    known = run.generator(c["traffic"]["kind"]).faults(c["traffic"])
     jobs = [(s, "program") for s in _seeds(args.seeds)]
     jobs += [(s, "control") for s in _seeds(args.control)]
     for spec in args.fault:
         name, seeds = spec.split(":")
+        if name not in known:
+            print(f"readings: no fault {name!r} for {args.workload}; its faults: {sorted(known)}",
+                  file=sys.stderr)
+            return 2
         jobs += [(s, name) for s in _seeds(seeds)]
     for seed, role in jobs:
         got = reading(c, seed, device, args.seconds, role)

@@ -4,8 +4,8 @@ shapes and the split's fixed pass schedule (never from a kernel's tiles or
 padding).
 
 The work functions are frozen copies of those ``chip_smoke.py`` used for its
-tables (``chain_work``, ``polar_work``, ``presplit_work``, ``rf_work``,
-``gram_flops``, ``bound_ms``), so the benchmark's shares do not move when
+tables (``chain_work``, ``polar_work``, ``presplit_work``, ``step_work``,
+``rf_work``, ``gram_flops``, ``bound_ms``), so the benchmark's shares do not move when
 that script does. A symmetric product (a Gram ``B B^T``, ``W = Y^T Y``,
 ``W W``) counts as one triangle.
 
@@ -79,6 +79,19 @@ def presplit_work(Lb, I, Mk, DM, B, q, D=2):
     nbytes = 4.0 * (Lb * I * Mk + Mk * DM + 2 * B * D + 2 * B * Mk + 2 * Lb * B
                     + Lb * DM * q + 2
                     + Lb * I * DM + I * q + I * I + Lb * B + B * I + 8)
+    return flops, nbytes
+
+
+def step_work(Lb, M, B, D=2):
+    """FLOPs and bytes of K7, the fused engine's two-site step at L = ``Lb``:
+    K2's pre-split, K1's iteration, Q^T bn and left Q; the step's inputs
+    (Omega, lr and wd included) read once, its outputs written once (the
+    stages' intermediates in between are not counted)."""
+    I = JC = M * D
+    flops = (presplit_work(Lb, I, M, JC, B, M, D)[0] + polar_work(I, M)[0]
+             + 2.0 * Lb * M * I * JC + 2.0 * B * I * M)
+    nbytes = 4.0 * (Lb * I * M + M * JC + 2 * B * D + 2 * B * M + 2 * Lb * B + Lb * JC * M + 2
+                    + I * M + Lb * M * JC + B * M + Lb * B + 4)
     return flops, nbytes
 
 

@@ -4,12 +4,40 @@
 
 The cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration, ``tnbench/configs/<config>.json``, and a traffic mix,
-``tnbench/traffic/<traffic>.json``, whose ``kind`` picks the general
-generator that reads it (``tnbench/serve.py``, ``tnbench/train.py``). The
-limits of the numbers that decide ``correct`` are
+``tnbench/traffic/<traffic>.json``. The traffic's ``kind`` is the name of the
+general generator that reads it, the module ``tnbench/<kind>.py``
+(``generator``). The limits of the numbers that decide ``correct`` are
 ``tnbench/limits/<cell>.json``, and each per-layer metric is read by
-``tnbench/metrics/<metric>.py``. Everything is found by name: a new cell or
-metric is new files and new entries in ``BENCHMARK.json``.
+``tnbench/metrics/<metric>.py``. Everything is found by name: a new cell,
+metric or traffic kind is new files and new entries in ``BENCHMARK.json``.
+
+A generator provides these functions, and the harness and its tests learn
+nothing about a kind but through them (``cfg`` the configuration, ``tr`` the
+traffic, both dicts):
+
+* ``setup(cfg, tr, seed, device) -> state``: weights and inputs from
+  ``seed``, every shape the window uses built and warmed;
+* ``window(state, tr, seconds, tracer) -> win``: the measured window, its
+  calls through ``trace.measure`` (which records the traced sub-window);
+* ``free(state)``: drop the program's state before the reference runs;
+* ``check(state, win, cfg, tr, device, outs=None) -> {"numbers": {...},
+  "items": [...]}``: the numbers that the limits name, and one dict of
+  numbers an answer or epoch; ``outs`` puts the control's outputs in the
+  program's place;
+* ``end_to_end(win, tr, setup_s) -> {metric: {"value", "unit"}}``;
+* ``counts(view, tr) -> dict``: what the traced sub-window holds (the
+  metric readers' ``view.counts``), from its ``tnbench.iteration`` spans;
+* ``attempted(win) -> int``;
+* ``small(cfg, tr) -> (cfg, tr)``: copies at the size of the CPU rehearsal
+  (``tnbench/tests``), which traces from the window's first call on;
+* ``control(cfg, tr, seed, device, seconds) -> dict``: ``check``'s result
+  with the control in the program's place (set-up, a window of ``seconds``,
+  the check), for setting the limits (``readings.py``);
+* ``faults(tr) -> {name: ((module, attribute), wrap)}``: the faults that
+  this traffic's path can have, each planted by replacing the dotted
+  ``attribute`` of ``module`` by ``wrap`` of it (``readings.planted``);
+* ``span_counts(view, cfg, tr) -> {span: count}``: how many of each of the
+  program's spans (``spans.py``) one traced sub-window holds.
 
 A run makes its weights and inputs on the card from ``--seed``, builds and
 warms the cell's kernels (set-up), measures for ``--seconds``, then checks
@@ -33,18 +61,41 @@ import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 BENCH_DIR = ROOT / "tnbench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "tensornetworkforml_tpu")
-GENERATORS = {"serve_closed_loop": "tnbench.serve", "train_epochs": "tnbench.train"}
+PROTOCOL = ("setup", "window", "free", "check", "end_to_end", "counts", "attempted", "small",
+            "control", "faults", "span_counts")
+NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
 
 
 def load_json(path: Path) -> dict:
     with open(path) as fh:
         return json.load(fh)
+
+
+def generator(kind: str):
+    """The generator of a traffic ``kind``: the module ``tnbench.<kind>``,
+    with every function of the protocol."""
+    if not isinstance(kind, str) or not NAME.match(kind):
+        raise ValueError(f"a traffic kind names a module of tnbench/, not {kind!r}")
+    name = f"tnbench.{kind}"
+    try:
+        module = importlib.import_module(name)
+    except ModuleNotFoundError as err:
+        if err.name != name:
+            raise
+        raise ValueError(f"no generator for the traffic kind {kind!r}: "
+                         f"tnbench/{kind}.py does not exist") from None
+    missing = [f for f in PROTOCOL if not callable(getattr(module, f, None))]
+    if missing:
+        raise ValueError(f"the generator tnbench/{kind}.py lacks {', '.join(missing)} "
+                         "of the protocol (tnbench/run.py)")
+    return module
 
 
 def load_cell(bench: dict, name: str) -> dict:
@@ -113,7 +164,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace: bool, dev
 
     c = loaded or load_cell(bench, name)
     cfg, tr, limits = c["config"], c["traffic"], c["limits"]
-    drv = importlib.import_module(GENERATORS[tr["kind"]])
+    drv = generator(tr["kind"])
     tracer = Tracer(trace, device)
     state = drv.setup(cfg, tr, seed, device)
     setup_s = time.perf_counter() - t0

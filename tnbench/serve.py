@@ -1,21 +1,29 @@
-"""The general generator of serving traffic (``"kind": "serve_closed_loop"``).
+"""The general generator of serving traffic (``"kind": "serve"``; the
+protocol is in ``run.py``).
 
 One closed-loop client sends requests of ``rows`` images back to back
 through ``Predictor(batch_size=...).scores``, cycling through a pool of
 ``pool`` distinct requests made in set-up as host arrays. A request's latency
 runs from the call to the numpy result in hand. After the window every
 answer served in it is compared with the plain reference's scores of its
-request, computed in float64.
+request, computed in float64. The control is the reference in float32 with
+TF32-rounded operands in the program's place; the faults are a request's
+second half of scores replaced by the mean of its first (``half_batch``) and
+one score of each request altered (``altered_score``).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from tnbench import gen
+from tnbench import gen, spans
 from tnbench.reference import mps as ref
-from tnbench.trace import measure
+from tnbench.trace import Tracer, measure
+
+PREDICTOR_SCORES = ("tensornetworkforml_torch.models.serving", "Predictor.scores")
 
 
 def setup(cfg: dict, tr: dict, seed: int, device):
@@ -98,3 +106,47 @@ def counts(view, tr: dict) -> dict:
 
 def attempted(win: dict) -> int:
     return len(win["outs"])
+
+
+def small(cfg: dict, tr: dict):
+    """The CPU rehearsal's size: two chunks a request."""
+    return ({**cfg, "N": 16, "M": 6, "image_side": 8},
+            {**tr, "rows": 48, "batch_size": 32, "trace_from": 0.0})
+
+
+def control(cfg: dict, tr: dict, seed: int, device, seconds: float) -> dict:
+    """The program's set-up and window, then the check of ``control_outputs``
+    in place of the answers served."""
+    state = setup(cfg, tr, seed, device)
+    win = window(state, tr, seconds, Tracer(False, device))
+    free(state)
+    return check(state, win, cfg, tr, device, outs=control_outputs(state, win, device))
+
+
+def _half_batch_scores(real):
+    def scores(self, x):
+        out = real(self, x)
+        h = len(out) // 2
+        out[h:] = out[:h].mean(axis=0)
+        return out
+    return scores
+
+
+def _altered_scores(real):
+    def scores(self, x):
+        out = real(self, x)
+        out[len(out) // 2, 3] += 0.01 * np.abs(out).max()
+        return out
+    return scores
+
+
+def faults(tr: dict) -> dict:
+    return {"half_batch": (PREDICTOR_SCORES, _half_batch_scores),
+            "altered_score": (PREDICTOR_SCORES, _altered_scores)}
+
+
+def span_counts(view, cfg: dict, tr: dict) -> dict:
+    """A request's spans, and one chunk span a chunk of ``batch_size`` rows."""
+    n = len(view.spans)
+    chunks = math.ceil(tr["rows"] / tr["batch_size"])
+    return {spans.REQUEST: n, spans.COPY_IN: n, spans.CHUNK: chunks * n, spans.COPY_OUT: n}

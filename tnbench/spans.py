@@ -16,7 +16,9 @@ For each seed the command runs the cell's set-up and window on the card as
 ``run.py --trace 1`` does and prints one JSON line: the traced sub-window's
 pace, its idle time split among the innermost program span open on the host
 (the rest "outside" the program), the six span readings below, the spans
-counted, and the cell's per-layer metrics as ``run.py`` reads them. It exits
+counted, and the cell's per-layer metrics as ``run.py`` reads them (a span
+this module does not name keeps its own name in the idle split; how many of
+each span a window holds is its generator's ``span_counts``). It exits
 2 without a card. Read from a trace without device operations (a CPU run),
 the device readings are ``None`` and the host-span readings are lengths on
 the host's clock.
@@ -26,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import importlib
 import json
 import sys
 from collections import Counter
@@ -153,7 +154,7 @@ def report(events, view) -> dict:
     return {
         "window_s": view.window_s,
         "pace": {k: v / view.window_s for k, v in view.counts.items() if k != "samples"},
-        "idle_pct": {ROWS[k]: 100.0 * v / (hi - lo) for k, v in idle.items()},
+        "idle_pct": {ROWS.get(k, k): 100.0 * v / (hi - lo) for k, v in idle.items()},
         "readings": readings(spans, device, lo, hi),
         "spans": dict(Counter(name for name, _, _ in spans)),
         "unlaunched": sum(1 for d in device if d[4] is None),
@@ -169,7 +170,7 @@ def traced(bench: dict, name: str, seed: int, seconds: float, device, loaded: di
 
     c = loaded or run.load_cell(bench, name)
     cfg, tr = c["config"], c["traffic"]
-    drv = importlib.import_module(run.GENERATORS[tr["kind"]])
+    drv = run.generator(tr["kind"])
     tracer = Tracer(True, device)
     state = drv.setup(cfg, tr, seed, device)
     drv.window(state, tr, seconds, tracer)

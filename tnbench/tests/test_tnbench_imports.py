@@ -21,15 +21,15 @@ for sub in ("reference",):
     pkg = importlib.import_module(f"tnbench.{sub}")
     for info in pkgutil.iter_modules(pkg.__path__):
         importlib.import_module(f"tnbench.{sub}.{info.name}")
-for mod in ("tnbench.serve", "tnbench.train", "tnbench.readings", "tnbench.gen",
-            "tnbench.roofline", "tnbench.trace"):
+for mod in ("tnbench.readings", "tnbench.spans", "tnbench.gen", "tnbench.roofline",
+            "tnbench.trace"):
     importlib.import_module(mod)
 for path in sorted((root / "tnbench" / "metrics").glob("*.py")):
     tnbench.run.metric_reader(path.stem)
 for path in sorted((root / "tnbench" / "configs").glob("*.json")):
     json.loads(path.read_text())
 for path in sorted((root / "tnbench" / "traffic").glob("*.json")):
-    json.loads(path.read_text())
+    tnbench.run.generator(json.loads(path.read_text())["kind"])
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -9,13 +9,13 @@ import pytest
 import torch
 
 from tnbench import run
+from tnbench.tests import cells
 
-BENCH = run.load_json(run.ROOT / "BENCHMARK.json")
+BENCH = cells.BENCH
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_.\-/]{1,200}$")
-CELLS = [w["name"] for w in BENCH["workloads"]]
-SMALL = {"N": 16, "M": 6, "image_side": 8}
+CELLS = cells.CELLS
 
 
 def _line(text):
@@ -90,23 +90,11 @@ def test_every_cell_reports_what_it_must(cell):
         assert (run.BENCH_DIR / "metrics" / f"{m['name']}.py").is_file()
 
 
-def _small(cell: str) -> dict:
-    c = run.load_cell(BENCH, cell)
-    c["config"].update(SMALL)
-    tr = c["traffic"]
-    if tr["kind"] == "serve_closed_loop":
-        tr.update(rows=48, batch_size=32)
-    else:
-        tr.update(batch=16, fresh_rows=48)
-    tr["trace_from"] = 0.0  # a short window: trace from its first call on
-    return c
-
-
 @pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("trace", [0, 1])
 def test_cell_runs_end_to_end_on_the_cpu(cell, trace):
     torch.manual_seed(0)
-    c = _small(cell)
+    c = cells.small(cell)
     out = run.run_cell(BENCH, cell, 2 ** 33 + 5, 0.3, bool(trace), torch.device("cpu"), 0.0,
                        loaded=c)
     assert list(out)[-1] == "checks"

@@ -9,21 +9,20 @@
   metrics read: the view, every metric and the breakdown are the same with
   and without them, on a hand-built trace and on a recorded CPU trace of
   every cell.
-* A CPU rehearsal of every cell: one span of each kind per request or
-  sweep, the host readings present, the device readings absent.
+* A CPU rehearsal of every cell: as many spans of each kind as its
+  generator expects of the window (``span_counts``), the host readings of
+  the spans it holds present, the device readings absent.
 """
-
-import importlib
 
 import pytest
 import torch
 
 from tnbench import run, spans
+from tnbench.tests import cells
 from tnbench.trace import Tracer, breakdown, idle_pct
 
-BENCH = run.load_json(run.ROOT / "BENCHMARK.json")
-CELLS = [w["name"] for w in BENCH["workloads"]]
-SMALL = {"N": 16, "M": 6, "image_side": 8}
+BENCH = cells.BENCH
+CELLS = cells.CELLS
 M128 = {"N": 196, "D": 2, "M": 128, "L": 10}
 
 
@@ -132,7 +131,7 @@ def _without_program_spans(events):
     return [e for e in events if not str(e.get("name", "")).startswith("tnml::")]
 
 
-def _same_reading(events, cell, config, traffic, counts):
+def _same_reading(events, cell, config, traffic, counts, bench=BENCH):
     """What ``trace.py`` and every per-layer metric of ``cell`` read, with and
     without the program's spans in the trace."""
     reads = []
@@ -142,7 +141,7 @@ def _same_reading(events, cell, config, traffic, counts):
         reads.append({
             "view": (view.device, view.host, view.spans, view.counts),
             "metrics": {m["name"]: run.metric_reader(m["name"])(view)
-                        for m in run.per_layer_for(BENCH, cell)},
+                        for m in run.per_layer_for(bench, cell)},
             "breakdown": breakdown(view) if view.spans and view.device else None,
         })
     assert reads[0] == reads[1]
@@ -159,39 +158,36 @@ def test_existing_metrics_ignore_the_program_spans_hand_built(cell, events):
     assert got["breakdown"] and any(v is not None for v in got["metrics"].values())
 
 
-def _small(cell):
-    c = run.load_cell(BENCH, cell)
-    c["config"].update(SMALL)
-    tr = c["traffic"]
-    if tr["kind"] == "serve_closed_loop":
-        tr.update(rows=48, batch_size=32)  # two chunks a request
-    else:
-        tr.update(batch=16, fresh_rows=48)
-    tr["trace_from"] = 0.0
-    return c
+# each reading of ``spans.readings``: the span it reads, and whether it needs
+# the device's operations
+READS = {"copy_in_ms.serve": (spans.COPY_IN, False), "copy_in_idle.serve": (spans.COPY_IN, True),
+         "prologue_ms.train": (spans.PROLOGUE, False),
+         "prologue_idle.train": (spans.PROLOGUE, True),
+         "step_host_us.train": (spans.STEP, False), "step_device_us.train": (spans.STEP, True)}
+
+
+def rehearse(bench, cell, loaded=None):
+    """A traced CPU window of ``cell`` at its rehearsal size, held to its
+    generator's ``span_counts``."""
+    torch.manual_seed(0)
+    c = cells.small(cell, bench, loaded)
+    view, events = spans.traced(bench, cell, 2 ** 33 + 7, 0.3, torch.device("cpu"), loaded=c)
+    drv = cells.generator(c)
+    _same_reading(events, cell, c["config"], c["traffic"], lambda v: drv.counts(v, c["traffic"]),
+                  bench)
+    out = spans.report(events, view)
+    assert len(view.spans) >= 1 and out["idle_pct"] == {} and out["unlaunched"] == 0
+    want = {k: v for k, v in drv.span_counts(view, c["config"], c["traffic"]).items() if v}
+    assert out["spans"] == want
+    for name, value in out["readings"].items():
+        span, on_device = READS[name]
+        assert (value is None) if on_device or span not in want else value > 0
+    return out
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cpu_rehearsal_of_every_cell(cell):
-    torch.manual_seed(0)
-    c = _small(cell)
-    view, events = spans.traced(BENCH, cell, 2 ** 33 + 7, 0.3, torch.device("cpu"), loaded=c)
-    drv = importlib.import_module(run.GENERATORS[c["traffic"]["kind"]])
-    _same_reading(events, cell, c["config"], c["traffic"], lambda v: drv.counts(v, c["traffic"]))
-    out = spans.report(events, view)
-    got, n = out["readings"], len(view.spans)
-    assert n >= 1 and out["idle_pct"] == {} and out["unlaunched"] == 0
-    if c["traffic"]["kind"] == "serve_closed_loop":
-        assert out["spans"] == {spans.REQUEST: n, spans.COPY_IN: n, spans.CHUNK: 2 * n,
-                                spans.COPY_OUT: n}
-        assert got["copy_in_ms.serve"] > 0 and got["copy_in_idle.serve"] is None
-    else:
-        sweeps = view.counts["sweeps"]
-        steps = (c["config"]["N"] - 1) * sweeps
-        assert out["spans"] == {spans.EPOCH: n, spans.SWEEP: sweeps, spans.PROLOGUE: sweeps,
-                                spans.STEP: steps}
-        assert got["prologue_ms.train"] > 0 and got["step_host_us.train"] > 0
-        assert got["prologue_idle.train"] is None and got["step_device_us.train"] is None
+    rehearse(BENCH, cell)
 
 
 def test_command_without_a_card_exits_nonzero(monkeypatch, capsys):

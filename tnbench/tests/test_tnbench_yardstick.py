@@ -17,6 +17,8 @@ from tnbench.trace import TraceView
     (roofline.presplit_work(10, 256, 128, 256, 256, 128)[0], 1.18e9),
     (roofline.presplit_work(10, 512, 256, 512, 256, 256)[0], 6.71e9),
     (roofline.rf_work(256, 2560, 136, 128)[0], 7.3e8),
+    (roofline.step_work(10, 128, 256)[0], 1.66e9),
+    (roofline.step_work(10, 128, 256)[1], 4.62e6),
 ])
 def test_work_counts_pinned(work, expected):
     assert work == pytest.approx(expected, rel=5e-3)
@@ -109,6 +111,38 @@ def test_readers_return_nothing_without_their_kernels():
     view = TraceView(device=[("other", "kernel", 0.0, 5.0)], spans=[(0.0, 10.0)],
                      counts={"requests": 1, "samples": 8192, "sweeps": 2},
                      config=M128, traffic={**SERVE, **TRAIN})
-    for name in ("k3_roofline", "k1_roofline", "k2_roofline", "k6_roofline", "h2d_ms.serve"):
+    for name in ("k3_roofline", "k1_roofline", "k2_roofline", "k6_roofline", "k7_roofline",
+                 "h2d_ms.serve"):
         assert metric_reader(name)(view) is None
     assert not math.isnan(metric_reader("mfu.train")(view))
+
+
+K7_LAUNCHES = ([f"(anonymous namespace)::presplit::{k}_kernel(Args)"
+                for k in ("prep", "gradient", "update", "transpose", "products", "finish")]
+               + ["(anonymous namespace)::polar::polar_cluster_kernel(float const*)",
+                  "(anonymous namespace)::step_env_kernel((anonymous namespace)::StepArgs)"])
+
+
+def test_k7_share_counts_overlapping_launches_once():
+    work = roofline.step_work(10, 128, 256)
+    device, end = _kernels_at_bound([(n, work, len(K7_LAUNCHES)) for n in K7_LAUNCHES], 5)
+    view = TraceView(device=device, spans=[(0.0, end)], counts={"sweeps": 1, "samples": 256},
+                     config=M128, traffic=TRAIN)
+    assert metric_reader("k7_roofline")(view) == pytest.approx(100.0, rel=1e-9)
+    # as dependent launches: each span starts when its predecessor's does, so
+    # the spans overlap and add up to more than the steps; the share stays
+    view.device = [(n, c, device[i - 1][2] if i else a, b)
+                   for i, (n, c, a, b) in enumerate(device)]
+    assert sum(b - a for _, _, a, b in view.device) > 1.5 * end
+    assert metric_reader("k7_roofline")(view) == pytest.approx(100.0, rel=1e-9)
+    # every launch twice as long, and as much idle again between the steps
+    view.device = [(n, c, 4 * a, 4 * a + 2 * (b - a)) for n, c, a, b in device]
+    assert metric_reader("k7_roofline")(view) == pytest.approx(50.0, rel=1e-9)
+
+
+def test_k7_share_needs_its_own_launch():
+    # the hybrid engine's K1 and K2, without K7's step_env_kernel, are not K7
+    device, end = _kernels_at_bound([(n, roofline.step_work(10, 128, 256), 7)
+                                     for n in K7_LAUNCHES[:-1]], 3)
+    view = TraceView(device=device, spans=[(0.0, end)], config=M128, traffic=TRAIN)
+    assert metric_reader("k7_roofline")(view) is None

@@ -1,4 +1,5 @@
-"""The general generator of training traffic (``"kind": "train_epochs"``).
+"""The general generator of training traffic (``"kind": "train"``; the
+protocol is in ``run.py``).
 
 Set-up makes the weights and a pool of ``pool_batches`` distinct batches of
 ``batch`` images on the device, builds one model and drives it through its
@@ -17,17 +18,29 @@ program's sites after each checked epoch are from isometries (the split's
 output on every step of the epoch's last sweep), and whether the model left
 the window finite (``check``). The traffic's ``sweep`` names the split the
 reference runs (``svd_method``, a key of ``reference.mps.SPLITS``).
+
+The control is the program's own TF32 path (``matmul_precision=
+"tensorfloat32"``) on the card, and the reference in float32 with
+TF32-rounded products in the program's place where the program has no such
+path: on the CPU, and in the fused engine, where the TF32 scope reaches only
+the prologue's closure and none of K7's arithmetic. The
+faults: each batch's first half fed twice (``half_batch``), every epoch
+returning the model it was given (``unchanged``), the window's epochs
+leaving a NaN in the model (``window_nan``), and, where the hybrid engine
+runs the polar split through ``polar_iterate`` (K1), its final schedule cut
+by two passes (``k1_pass_cut``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tnbench import gen
+from tnbench import gen, spans
 from tnbench.reference import mps as ref
-from tnbench.trace import measure
+from tnbench.trace import Tracer, measure
 
 ENTRY = ("tensornetworkforml_torch.train.epoch", "fused_epoch")
+POLAR_ITERATE = ("tensornetworkforml_torch.train.sweep", "polar_iterate")
 
 
 def sweep_config(cfg: dict, tr: dict, precision: str = None):
@@ -209,3 +222,94 @@ def counts(view, tr: dict) -> dict:
 
 def attempted(win: dict) -> int:
     return win["epochs"]
+
+
+def small(cfg: dict, tr: dict):
+    """The CPU rehearsal's size; at it float32 and float64 part from the
+    fourth step on."""
+    return ({**cfg, "N": 16, "M": 6, "image_side": 8},
+            {**tr, "batch": 16, "fresh_rows": 48, "steady_steps": 3, "trace_from": 0.0})
+
+
+def control(cfg: dict, tr: dict, seed: int, device, seconds: float) -> dict:
+    """Set-up, a window and the check with the control in the program's
+    place: the program's TF32 path on the card; the reference's checked
+    epochs in float32 with TF32-rounded products on the CPU, which has no
+    TF32, and for the fused engine, whose steps (K7) the TF32 scope does not
+    reach."""
+    own = device.type == "cuda" and tr["sweep"]["engine"] != "fused"
+    state = setup(cfg, tr, seed, device, precision="tensorfloat32" if own else None)
+    win = window(state, tr, seconds, Tracer(False, device))
+    free(state)
+    outs = None if own else reference_epochs(state, tr, low=True)
+    return check(state, win, cfg, tr, device, outs=outs)
+
+
+def _half_batch(step):
+    """``step`` (``fused_epoch``) fed each batch's first half twice: every
+    sum over the batch is twice the sum over the half kept."""
+    def faulty(model, x, y, *args, **kwargs):
+        axis = y.dim() - 1  # the batch axis
+        h = y.shape[axis] // 2
+        x2 = torch.cat([x.narrow(axis, 0, h)] * 2, dim=axis)
+        y2 = torch.cat([y.narrow(axis, 0, h)] * 2, dim=axis)
+        return step(model, x2, y2, *args, **kwargs)
+    return faulty
+
+
+def _unchanged(step):
+    """``step`` returning the model it was given."""
+    def faulty(model, *args, **kwargs):
+        return (model, *step(model, *args, **kwargs)[1:])
+    return faulty
+
+
+def _window_nan(checked_epochs: int):
+    """``step`` sound through the checked epochs, then leaving a NaN in the
+    model. The next call gets back the entry the NaN replaced, so every
+    epoch runs on a finite model (a split on the CPU raises on a NaN) and
+    the model is non-finite when the window closes."""
+    def wrap(step):
+        calls, replaced = [], []
+
+        def faulty(model, *args, **kwargs):
+            calls.append(1)
+            if replaced:
+                model.label_site[0, 0, 0, 0] = replaced.pop()
+            out = step(model, *args, **kwargs)
+            if len(calls) > checked_epochs:
+                replaced.append(out[0].label_site[0, 0, 0, 0].item())
+                out[0].label_site[0, 0, 0, 0] = float("nan")
+            return out
+        return faulty
+    return wrap
+
+
+def _k1_pass_cut(polar_iterate, cut: int = 2):
+    """``polar_iterate`` with the last ``cut`` passes of its final schedule
+    left out (the reference's copy of the schedule)."""
+    final = ref.pe_schedule(*ref.POLAR_FINAL)[:-cut]
+
+    def faulty(y, g, n2=None, **kwargs):
+        return polar_iterate(y, g, n2, final_coeffs=final, **kwargs)
+    return faulty
+
+
+def faults(tr: dict) -> dict:
+    out = {"half_batch": (ENTRY, _half_batch), "unchanged": (ENTRY, _unchanged),
+           "window_nan": (ENTRY, _window_nan(tr["checked_epochs"]))}
+    sweep = tr["sweep"]
+    if sweep["svd_method"] == "polar" and sweep["engine"] == "hybrid":
+        # only the hybrid engine calls K1 through this name: the fused
+        # engine's K1 stage runs inside K7's C chain
+        out["k1_pass_cut"] = (POLAR_ITERATE, _k1_pass_cut)
+    return out
+
+
+def span_counts(view, cfg: dict, tr: dict) -> dict:
+    """An epoch's span and each sweep's with its prologue; a span a two-site
+    step but in the fused engine, whose steps K7 issues from C."""
+    n = len(view.spans)
+    sweeps = n * tr["batches_per_epoch"]
+    steps = 0 if tr["sweep"]["engine"] == "fused" else (cfg["N"] - 1) * sweeps
+    return {spans.EPOCH: n, spans.SWEEP: sweeps, spans.PROLOGUE: sweeps, spans.STEP: steps}
