@@ -27,20 +27,28 @@ def ring_forward_arrays(sites: torch.Tensor, label_site: torch.Tensor, phi: torc
     """Un-activated class scores ``(L, B)`` for the ring topology.
 
     The open chain's layout (``sites (N, M, D, M)``, ``label_site
-    (M, D, L, M)``); the slot ``sites[l_pos]`` is unused.
+    (M, D, L, M)``); the slot ``sites[l_pos]`` is unused. Each call adds
+    the ``N - 1`` batched ``(B, M, M)`` products it carries to
+    ``ring_forward_arrays.products``.
     """
     N, M, D, _ = sites.shape
     B = phi.shape[0]
     G = torch.eye(M, dtype=sites.dtype, device=sites.device).expand(B, M, M)
-    # ring order starting after the label: l_pos+1, ..., N-1, 0, ..., l_pos-1
-    for k in range(N - 1):
-        n = (l_pos + 1 + k) % N
-        mat = torch.einsum("ldr,bd->blr", sites[n], phi[:, n, :])
+    # ring order starting after the label: l_pos+1, ..., N-1, 0, ..., l_pos-1;
+    # every site's matrix in one contraction, the products one by one
+    shift = -(l_pos + 1)
+    mats = torch.einsum("nldr,bnd->nblr", sites.roll(shift, 0)[: N - 1],
+                        phi.roll(shift, 1)[:, : N - 1])
+    for mat in mats.unbind(0):
         G = torch.bmm(G, mat)
     # close the loop through the label site:
     # f[o,b] = sum_{k,r} G[b,k,r] label[r,d,o,k] phi[b,l_pos,d]
     gx = torch.einsum("bkr,bd->bkrd", G, phi[:, l_pos, :])
+    ring_forward_arrays.products += N - 1
     return torch.einsum("bkrd,rdok->ob", gx, label_site)
+
+
+ring_forward_arrays.products = 0
 
 
 def ring_forward(mps: MPS, phi: torch.Tensor) -> torch.Tensor:

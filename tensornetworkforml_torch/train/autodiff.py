@@ -8,7 +8,11 @@ fixed), and the trainer of the ring topology (``models/ring.py``).
 
 The step -- embedding, forward, loss, backward, optimiser -- runs the plain
 forward (``models/mps.py::_forward_arrays``): the chain kernel K3 has no
-backward, in either package. Bond dimensions stay fixed.
+backward, in either package. Bond dimensions stay fixed. A step takes its
+batch as numpy arrays or as tensors on any device (a batch already on the
+model's device is used in place), and records the spans of
+``utils/profiling.py`` (the step, and in it the forward, the backward and
+the optimiser) while a profiler records.
 """
 
 from __future__ import annotations
@@ -22,6 +26,13 @@ import torch.nn.functional as F
 from tensornetworkforml_torch.models.mps import MPS, _forward_arrays
 from tensornetworkforml_torch.ops.embedding import psi_embed
 from tensornetworkforml_torch.train.trainer import _loader_batches
+from tensornetworkforml_torch.utils.profiling import (
+    AUTODIFF_BACKWARD,
+    AUTODIFF_FORWARD,
+    AUTODIFF_OPTIMIZER,
+    AUTODIFF_STEP,
+    span,
+)
 
 
 class AutodiffConfig(NamedTuple):
@@ -58,6 +69,14 @@ def make_optimizer(cfg: AutodiffConfig, params) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
+def _on(a, device, dtype=None) -> torch.Tensor:
+    """``a`` (a tensor on any device, or anything ``np.asarray`` takes) as a
+    tensor on ``device``; a tensor is moved only if it is elsewhere."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
 def _leaf(t: torch.Tensor) -> torch.Tensor:
     """A fresh leaf tensor that takes gradients (the model's own is untouched)."""
     return t.detach().clone().requires_grad_(True)
@@ -87,15 +106,19 @@ class AutodiffTrainer:
 
     def step(self, x_raw, y) -> tuple[float, float]:
         """One optimiser step on a batch; returns ``(loss, accuracy)``."""
-        dev, dtype = self.params[0].device, self.params[0].dtype
-        x_raw = torch.as_tensor(np.asarray(x_raw)).to(dtype=dtype, device=dev)
-        y = torch.as_tensor(np.asarray(y)).long().to(dev)
-        self.opt.zero_grad(set_to_none=True)
-        loss, acc = _loss_fn(self.params, x_raw, y, self._l_pos, self._model.T, self.cfg,
-                             self._fwd)
-        loss.backward()
-        self.opt.step()
-        return float(loss.detach()), float(acc)
+        with span(AUTODIFF_STEP):
+            dev, dtype = self.params[0].device, self.params[0].dtype
+            x_raw = _on(x_raw, dev, dtype)
+            y = _on(y, dev).long()
+            self.opt.zero_grad(set_to_none=True)
+            with span(AUTODIFF_FORWARD):
+                loss, acc = _loss_fn(self.params, x_raw, y, self._l_pos, self._model.T,
+                                     self.cfg, self._fwd)
+            with span(AUTODIFF_BACKWARD):
+                loss.backward()
+            with span(AUTODIFF_OPTIMIZER):
+                self.opt.step()
+            return float(loss.detach()), float(acc)
 
     def fit(self, loader, n_epochs: int, verbose: bool = False):
         """Epoch loop over a loader of raw-pixel batches."""

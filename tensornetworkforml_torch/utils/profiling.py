@@ -12,7 +12,7 @@ notebooks (SURVEY.md section 5); this module is the same as a library:
 * ``device_trace``: a context manager around ``torch.profiler`` that writes a
   Chrome / Perfetto trace of the host and, on the card, the device timeline;
 * ``span``: the port's own ranges in that trace, at the layer boundaries of
-  serving and training (the names below), on the profiler's clock beside the
+  serving, sweep training and autodiff training (the names below), on the profiler's clock beside the
   CUDA runtime calls and the card's kernels and copies. They are recorded
   exactly while a profiler records; otherwise ``span`` returns a shared
   no-op context and costs one flag read.
@@ -42,6 +42,11 @@ EPOCH = "tnml::epoch"  # ``fused_epoch``
 SWEEP = "tnml::sweep"  # one sweep, every engine and caller
 SWEEP_PROLOGUE = "tnml::sweep.prologue"  # the stale environment stack and f0
 STEP = STEP_RANGE  # one two-site step (the xla and hybrid engines)
+# Autodiff training (``train/autodiff.py::AutodiffTrainer.step``):
+AUTODIFF_STEP = "tnml::autodiff.step"  # the whole step, the batch's copy in included
+AUTODIFF_FORWARD = "tnml::autodiff.forward"  # the embedding, the forward and the loss
+AUTODIFF_BACKWARD = "tnml::autodiff.backward"  # ``loss.backward()``
+AUTODIFF_OPTIMIZER = "tnml::autodiff.optimizer"  # the optimiser's update
 
 _OFF = contextlib.nullcontext()
 
